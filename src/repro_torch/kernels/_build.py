@@ -1,0 +1,122 @@
+"""Build hand-written CUDA kernels with ``nvcc`` and load them with ctypes.
+
+Each ``.cu`` source exposes a plain C interface (pointers and the stream as
+``void*``, returning ``cudaGetLastError()``), is compiled for ``sm_90a``
+into a shared library on first use, and is cached by the hash of its
+source and flags in ``kernels/_build/`` (ignored by git). This cache is the
+package's only global state. Nothing here runs at import time: the CPU test
+machine has no ``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Iterable, Optional, Sequence
+
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and Path(CUDA_HOME, "bin", "nvcc").exists():
+        return str(Path(CUDA_HOME, "bin", "nvcc"))
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+class CudaKernel:
+    """One ``.cu`` source, its shared library and one C entry point.
+
+    ``launches`` counts the wrapper's launches of this kernel; callers set
+    it to 0 before a run and read it after.
+    """
+
+    def __init__(self, name: str, source: Path, symbol: str,
+                 argtypes: Sequence[type]):
+        self.name = name
+        self.source = Path(source)
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self.build_log = ""         # nvcc's output, ptxas register report
+        self._fn = None
+        self._errstr = None
+        self._lock = threading.Lock()
+
+    @property
+    def library(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
+
+    def _start_build(self) -> Optional[subprocess.Popen]:
+        """Start nvcc unless the library is already built."""
+        if self.library.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+
+    def _finish_build(self, proc: subprocess.Popen) -> None:
+        out, _ = proc.communicate()
+        self.build_log = out
+        tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {self.source}:\n{out}")
+        os.replace(tmp, self.library)
+
+    def fn(self):
+        """The loaded C entry point (building the library on first use)."""
+        if self._fn is None:
+            with self._lock:
+                if self._fn is None:
+                    build_all([self])
+                    lib = ctypes.CDLL(str(self.library))
+                    fn = getattr(lib, self.symbol)
+                    fn.argtypes = self.argtypes
+                    fn.restype = ctypes.c_int
+                    err = getattr(lib, f"{self.name}_error_string")
+                    err.argtypes = [ctypes.c_int]
+                    err.restype = ctypes.c_char_p
+                    self._errstr = err
+                    self._fn = fn
+        return self._fn
+
+    def check(self, rc: int) -> None:
+        if rc != 0:
+            msg = self._errstr(rc).decode() if self._errstr else "?"
+            raise RuntimeError(f"{self.name}: CUDA error {rc} ({msg})")
+
+
+def build_all(kernels: Iterable[CudaKernel]) -> None:
+    """Build every kernel not yet built, one nvcc per source, all started
+    together; raise with every failing compiler's output."""
+    procs = [(k, k._start_build()) for k in kernels]
+    errors = []
+    for k, proc in procs:
+        if proc is None:
+            continue
+        try:
+            k._finish_build(proc)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def stream_ptr(t) -> ctypes.c_void_p:
+    """The current CUDA stream of ``t``'s device, as a ctypes pointer."""
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)

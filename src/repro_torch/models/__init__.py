@@ -1,0 +1,8 @@
+"""Model substrate of the port: the dense attention decoder stack."""
+from .config import SHAPES, ModelConfig, ShapeConfig, reduced
+from .transformer import (cache_axes, decode_step, forward, init_cache,
+                          init_params, logits_head, prefill)
+
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "reduced", "init_params",
+           "forward", "prefill", "decode_step", "init_cache", "cache_axes",
+           "logits_head"]

@@ -1,0 +1,103 @@
+"""Shared model primitives: norms, rotary embeddings, dense/GLU blocks and
+embedding (PyTorch twin of ``repro.models.layers``).
+
+Parameters are plain nested dicts of tensors with the JAX package's tree
+layout (dense ``w`` is ``[in, out]`` with an optional ``b``), so weights
+convert leaf by leaf (see ``convert.py``). Every function casts its
+parameters to the compute dtype before use, exactly as the reference does.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+
+def truncated_normal_(t: torch.Tensor, stddev: float,
+                      generator: torch.Generator) -> torch.Tensor:
+    """Fill ``t`` in place with N(0, 1) truncated to [-2, 2], times stddev
+    (the distribution of ``repro.models.layers.truncated_normal``), drawn
+    in fp32 and cast to ``t``'s dtype."""
+    buf = torch.empty(t.shape, dtype=torch.float32, device=t.device)
+    lo, hi = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0, \
+        (1.0 + math.erf(2.0 / math.sqrt(2.0))) / 2.0
+    buf.uniform_(2.0 * lo - 1.0, 2.0 * hi - 1.0, generator=generator)
+    buf.erfinv_().mul_(math.sqrt(2.0) * stddev)
+    buf.clamp_(-2.0 * stddev, 2.0 * stddev)
+    return t.copy_(buf)
+
+
+# ----------------------------------------------------------------- norms
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             zero_centered: bool = False) -> torch.Tensor:
+    """RMSNorm in fp32, cast back to x.dtype. gemma2 uses (1 + scale)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    xn = xf * torch.rsqrt(var + eps)
+    s = scale.float()
+    if zero_centered:
+        s = 1.0 + s
+    return (xn * s).to(x.dtype)
+
+
+# ----------------------------------------------------------------- rotary
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 1e4) -> torch.Tensor:
+    """Half-split rotary embedding in fp32. x [B, S, H, D]; positions [S]
+    or [B, S]."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.float()[..., None] * freqs
+    ang = ang[None, :, None, :] if positions.dim() == 1 else ang[:, :, None, :]
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+# ----------------------------------------------------------------- dense / GLU
+
+def dense(x: torch.Tensor, p: Dict[str, Any],
+          compute_dtype=torch.bfloat16) -> torch.Tensor:
+    out = x.to(compute_dtype) @ p["w"].to(compute_dtype)
+    if "b" in p:
+        out = out + p["b"].to(compute_dtype)
+    return out
+
+
+_ACTS = {"silu": F.silu,
+         "gelu": lambda t: F.gelu(t, approximate="tanh"),
+         "relu": F.relu}
+
+
+def glu(x: torch.Tensor, p: Dict[str, Any], act: str = "silu",
+        compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """SwiGLU / GeGLU feed-forward: the activation runs in fp32 and is cast
+    to the compute dtype before the gate product."""
+    h = dense(x, p["wi"], compute_dtype)
+    g = dense(x, p["wg"], compute_dtype)
+    h = _ACTS[act](g.float()).to(compute_dtype) * h
+    return dense(h, p["wo"], compute_dtype)
+
+
+# ----------------------------------------------------------------- embedding
+
+def embed(tokens: torch.Tensor, p: Dict[str, Any], *,
+          scale_by_dim: bool = False,
+          compute_dtype=torch.bfloat16) -> torch.Tensor:
+    tbl = p["table"].to(compute_dtype)
+    x = F.embedding(tokens.long(), tbl)
+    if scale_by_dim:  # gemma embedding scaling, the factor rounded first
+        x = x * _rounded(tbl.shape[-1] ** 0.5, compute_dtype)
+    return x
+
+
+def _rounded(value: float, dtype: Optional[torch.dtype]) -> float:
+    """``value`` rounded to ``dtype`` (as ``jnp.asarray(value, dtype)``)."""
+    return float(torch.tensor(value, dtype=dtype))

@@ -1,0 +1,341 @@
+"""Serving engine: fused batched admission + joint decode over fixed slots
+(twin of ``repro.serving.engine``).
+
+``GenerationEngine`` owns a slot KV cache preallocated once on the device:
+
+- **fused admission** — all free slots are filled with ONE prefill per
+  prompt-length bucket: prompts are right-padded to the bucket length,
+  prefilled as a batch, and the resulting rows are written *in place* into
+  the slot cache with ``index_copy_`` at the slot indices (never a copy of
+  the whole cache). Right-padding is exact for attention layers: the decode
+  kernel masks by ``lengths``, and pad positions are never attended and are
+  progressively overwritten. Recurrent patterns ("m"/"r") would fold pad
+  tokens into their state, so those bucket by exact length.
+- **fused decode** — one step over all slots that advances every active
+  slot and computes done-flags on the device, so the host syncs ONCE per
+  step instead of once per slot.
+
+Slot state (lengths, token budgets, active mask, last token per slot) lives
+on the device between calls; the host keeps only the request objects and a
+free-slot map. Each admit call and each step makes exactly one
+device-to-host transfer, so ``host_syncs == admit_calls + steps``.
+``ContinuousBatcher`` fronts one engine with a thread-safe per-tenant WRR
+:class:`~repro_torch.serving.scheduler.SlotScheduler`; ``generate`` routes
+batch generation through the same engine path.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..device import DeviceLike, resolve_device
+from ..models import decode_step, init_cache, prefill
+from ..models.config import ModelConfig
+from .scheduler import SlotScheduler
+
+
+@dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray                  # [S] int32
+    max_new_tokens: int = 16
+    tenant: str = "default"
+    tokens: List[int] = field(default_factory=list)
+    done: bool = False
+    submitted_at: float = field(default_factory=time.monotonic)
+    dequeued_at: float = 0.0            # WRR dispatch (SlotScheduler.take)
+    admit_started_at: float = 0.0       # prefill launch (before device sync)
+    admitted_at: float = 0.0
+    first_token_at: float = 0.0         # TTFT = first_token_at - submitted_at
+    finished_at: float = 0.0
+
+
+def _same_device(t: torch.Tensor, dev: torch.device) -> bool:
+    return t.device.type == dev.type and (dev.index is None
+                                          or t.device.index == dev.index)
+
+
+class GenerationEngine:
+    """Slot-based engine: fused bucketed admission, joint decode.
+
+    NOT thread-safe by itself: exactly one drive thread may call
+    ``admit_many``/``step``; put a :class:`ContinuousBatcher` in front for
+    concurrent submitters. ``device=None`` means the card; pass
+    ``device="cpu"`` (with CPU parameters) to run on the CPU.
+    """
+
+    def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
+                 max_len: int = 512, compute_dtype=torch.bfloat16,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        table = params["embed"]["table"]
+        if not _same_device(table, self.device):
+            raise ValueError(f"parameters are on {table.device}, the engine "
+                             f"on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.slots = slots
+        self.max_len = max_len
+        self.compute_dtype = compute_dtype
+        self.cache = init_cache(cfg, slots, max_len, device=self.device)
+        i32 = dict(dtype=torch.int32, device=self.device)
+        # device-resident slot state, updated by every fused call
+        self._slot_lengths = torch.zeros((slots,), **i32)
+        self._budget = torch.zeros((slots,), **i32)
+        self._active = torch.zeros((slots,), dtype=torch.bool,
+                                   device=self.device)
+        self._last = torch.zeros((slots, 1), **i32)
+        # host mirrors (authoritative for slot occupancy)
+        self.lengths = np.zeros((slots,), np.int32)
+        self.slot_req: List[Optional[Request]] = [None] * slots
+        # recurrent state folds pad tokens in: bucket by exact length there
+        self._exact_buckets = any(ch in cfg.layer_pattern for ch in "mr")
+        # perf counters (benchmarks read these)
+        self.steps = 0
+        self.admit_calls = 0            # fused admit invocations
+        self.admitted = 0               # requests admitted
+        self.full_cache_copies = 0      # whole-cache copies: stays 0
+        self.host_syncs = 0             # device->host transfers
+
+    # -- slots -------------------------------------------------------------
+
+    def free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slot_req) if r is None]
+
+    def _bucket(self, n: int) -> int:
+        if self._exact_buckets:
+            return n
+        b = 8
+        while b < n:
+            b <<= 1
+        return min(b, self.max_len - 1)
+
+    # -- fused device calls ------------------------------------------------
+
+    @torch.inference_mode()
+    def _admit(self, prompts: torch.Tensor, slot_idx: torch.Tensor,
+               true_len: torch.Tensor, max_new: torch.Tensor) -> torch.Tensor:
+        """Prefill ``k`` right-padded prompts and write them into freed
+        slots in place. Returns the first generated token per row."""
+        cfg = self.cfg
+        row_cache = init_cache(cfg, prompts.shape[0], self.max_len,
+                               device=self.device)
+        logits, row_cache, _ = prefill(self.params, cfg, prompts, row_cache,
+                                       lengths=true_len,
+                                       compute_dtype=self.compute_dtype)
+        first = logits[:, 0, :cfg.vocab].argmax(dim=-1).to(torch.int32)
+        for name, sub in self.cache.items():
+            for kv, c in sub.items():
+                c.index_copy_(1, slot_idx, row_cache[name][kv].to(c.dtype))
+        self._slot_lengths.index_copy_(0, slot_idx, true_len)
+        # the first token is produced by the prefill itself: one unit of
+        # budget is spent on it, and a slot stays active only if budget
+        # remains and the cache can hold another token
+        self._budget.index_copy_(0, slot_idx, max_new - 1)
+        self._active.index_copy_(
+            0, slot_idx, (max_new > 1) & (true_len < self.max_len - 1))
+        self._last.index_copy_(0, slot_idx, first[:, None])
+        return first
+
+    @torch.inference_mode()
+    def _step(self) -> torch.Tensor:
+        """One decode step over every slot; inactive slots are masked out.
+
+        Inactive slots still flow through the batched matmuls (their K/V
+        writes land at stale positions inside the cache, are masked by
+        ``lengths`` and are overwritten at the next admission), which keeps
+        the step shape static. Returns [2, slots] int32: tokens, done."""
+        call_lengths = self._slot_lengths + 1     # new token position + 1
+        logits, _, _ = decode_step(self.params, self.cfg, self._last,
+                                   self.cache, call_lengths,
+                                   compute_dtype=self.compute_dtype)
+        toks = logits[:, 0, :self.cfg.vocab].argmax(dim=-1).to(torch.int32)
+        active = self._active
+        self._slot_lengths = torch.where(active, self._slot_lengths + 1,
+                                         self._slot_lengths)
+        self._budget = torch.where(active, self._budget - 1, self._budget)
+        self._last = torch.where(active[:, None], toks[:, None], self._last)
+        done = active & ((self._budget <= 0)
+                         | (self._slot_lengths >= self.max_len - 1))
+        self._active = active & ~done
+        return torch.stack([toks, done.to(torch.int32)])
+
+    # -- admission ---------------------------------------------------------
+
+    def admit_many(self, reqs: List[Request]) -> List[Request]:
+        """Admit up to ``len(free_slots())`` requests, one fused call (and
+        one host sync) per prompt-length bucket. Returns the requests
+        admitted; those with ``done`` set finished at admission (their
+        single-token budget was spent by the prefill)."""
+        free = self.free_slots()
+        take = list(reqs[:len(free)])
+        if not take:
+            return []
+        groups: Dict[int, List[Request]] = {}
+        for r in take:
+            n = int(np.asarray(r.prompt).reshape(-1).shape[0])
+            if n >= self.max_len:
+                raise ValueError(
+                    f"prompt length {n} >= engine max_len {self.max_len}")
+            groups.setdefault(self._bucket(n), []).append(r)
+        for pad_len, group in sorted(groups.items()):
+            k = len(group)
+            idx = np.asarray(free[:k], np.int32)
+            free = free[k:]
+            t_admit = time.monotonic()   # prefill launch, before host sync
+            for r in group:
+                r.admit_started_at = t_admit
+            prompts = np.zeros((k, pad_len), np.int32)
+            true_len = np.empty((k,), np.int32)
+            max_new = np.empty((k,), np.int32)
+            for j, r in enumerate(group):
+                p = np.asarray(r.prompt, np.int32).reshape(-1)
+                prompts[j, :p.shape[0]] = p
+                true_len[j] = p.shape[0]
+                max_new[j] = max(1, int(r.max_new_tokens))
+            # one host-to-device copy of everything the call needs
+            buf = torch.from_numpy(np.concatenate(
+                [prompts.reshape(-1), idx, true_len, max_new])).to(self.device)
+            n_tok = k * pad_len
+            first = self._admit(buf[:n_tok].view(k, pad_len),
+                                buf[n_tok:n_tok + k].long(),
+                                buf[n_tok + k:n_tok + 2 * k],
+                                buf[n_tok + 2 * k:])
+            first_np = first.cpu().numpy()
+            self.host_syncs += 1
+            self.admit_calls += 1
+            self.admitted += k
+            now = time.monotonic()
+            for j, r in enumerate(group):
+                slot = int(idx[j])
+                r.tokens.append(int(first_np[j]))
+                r.admitted_at = now
+                r.first_token_at = now
+                if max_new[j] <= 1 or true_len[j] >= self.max_len - 1:
+                    r.done = True
+                    r.finished_at = now          # slot never occupied
+                else:
+                    self.slot_req[slot] = r
+                    self.lengths[slot] = int(true_len[j])
+        return take
+
+    def admit(self, req: Request) -> bool:
+        """Single-request admission (compat shim over ``admit_many``)."""
+        return bool(self.admit_many([req]))
+
+    # -- decode ------------------------------------------------------------
+
+    def step(self) -> List[Request]:
+        """One fused decode step over all slots; returns finished requests.
+        One host sync per step regardless of slot count."""
+        if not any(r is not None for r in self.slot_req):
+            return []
+        toks_np, done_np = self._step().cpu().numpy()
+        self.host_syncs += 1
+        self.steps += 1
+        now = time.monotonic()
+        finished: List[Request] = []
+        for i, req in enumerate(self.slot_req):
+            if req is None:
+                continue
+            req.tokens.append(int(toks_np[i]))
+            self.lengths[i] += 1
+            if done_np[i]:
+                req.done = True
+                req.finished_at = now
+                finished.append(req)
+                self.slot_req[i] = None
+                self.lengths[i] = 0
+        return finished
+
+    # -- introspection -----------------------------------------------------
+
+    def active_slots(self) -> int:
+        return sum(1 for r in self.slot_req if r is not None)
+
+    def counters(self) -> Dict[str, int]:
+        return {"steps": self.steps, "admit_calls": self.admit_calls,
+                "admitted": self.admitted,
+                "full_cache_copies": self.full_cache_copies,
+                "host_syncs": self.host_syncs}
+
+
+class ContinuousBatcher:
+    """Thread-safe request front for ONE engine: a per-tenant WRR
+    :class:`SlotScheduler` feeds the engine's free slots. ``submit`` is
+    safe from any thread; a single drive thread calls ``pump`` /
+    ``run_until_drained``."""
+
+    def __init__(self, engine: GenerationEngine,
+                 scheduler: Optional[SlotScheduler] = None):
+        self.engine = engine
+        # NOT ``scheduler or ...``: SlotScheduler.__len__ is the pending
+        # count, so a freshly-built (empty) scheduler is falsy and would be
+        # silently replaced with a default fair one.
+        self.scheduler = (scheduler if scheduler is not None
+                          else SlotScheduler())
+        self._lock = threading.Lock()
+        self._uid = 0
+        self.completed: Dict[int, Request] = {}
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 16,
+               tenant: str = "default") -> int:
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.shape[0] >= self.engine.max_len:
+            raise ValueError(f"prompt length {prompt.shape[0]} >= "
+                             f"engine max_len {self.engine.max_len}")
+        with self._lock:
+            self._uid += 1
+            uid = self._uid
+        self.scheduler.submit(
+            tenant, Request(uid, prompt, max_new_tokens, tenant=tenant))
+        return uid
+
+    def pump(self) -> List[Request]:
+        """One admit+decode round; returns requests finished this round."""
+        finished: List[Request] = []
+        free = len(self.engine.free_slots())
+        if free:
+            for req in self.engine.admit_many(self.scheduler.take(free)):
+                if req.done:
+                    finished.append(req)
+        finished.extend(self.engine.step())
+        if finished:
+            with self._lock:
+                for req in finished:
+                    self.completed[req.uid] = req
+        return finished
+
+    def run_until_drained(self, max_steps: int = 10_000) -> None:
+        for _ in range(max_steps):
+            self.pump()
+            if (self.scheduler.pending() == 0
+                    and self.engine.active_slots() == 0):
+                return
+        raise TimeoutError("batcher did not drain")
+
+
+def generate(cfg: ModelConfig, params: Any, prompts: np.ndarray,
+             max_new_tokens: int = 16, max_len: int = 256,
+             compute_dtype=torch.bfloat16,
+             device: DeviceLike = None) -> np.ndarray:
+    """Batched generation routed through the engine path (ONE decode
+    implementation): B prompts admit into B slots in a single fused call,
+    then fused-decode to the token budget."""
+    prompts = np.asarray(prompts, np.int32)
+    B, S = prompts.shape
+    if S + max_new_tokens > max_len:
+        raise ValueError(f"prompt ({S}) + max_new_tokens ({max_new_tokens}) "
+                         f"exceeds max_len ({max_len})")
+    engine = GenerationEngine(cfg, params, slots=B, max_len=max_len,
+                              compute_dtype=compute_dtype, device=device)
+    reqs = [Request(i + 1, prompts[i], max_new_tokens) for i in range(B)]
+    engine.admit_many(reqs)   # equal lengths: one bucket, slots 0..B-1
+    while engine.active_slots():
+        engine.step()
+    return np.asarray([r.tokens for r in reqs])

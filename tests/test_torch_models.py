@@ -1,0 +1,209 @@
+"""Model layer of the PyTorch port against the JAX package: the weight
+bridge (``params_from_jax``), ``init_params``' tree and distributions, and
+prefill plus decode-step logits on the same weights and ragged inputs.
+
+Logit tolerances: with an fp32 cache the two frameworks compute the same
+fp32 arithmetic in another order, so atol = rtol = 1e-4. With the default
+bf16 cache, p is rounded to bf16 before the PV product (as in the
+reference); an fp32-ulp difference upstream can flip that rounding by one
+bf16 ulp (2^-8 relative), so logits of magnitude ~30 (gemma2's final
+softcap) may move by a few 1e-3: atol = rtol = 1e-2 there.
+"""
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")   # the reference; absent on the card's machine
+import jax.numpy as jnp
+
+from repro import configs as jconfigs
+from repro.models import decode_step as j_decode_step
+from repro.models import init_cache as j_init_cache
+from repro.models import init_params as j_init_params
+from repro.models import prefill as j_prefill
+from repro_torch import configs as tconfigs
+from repro_torch.models import convert
+from repro_torch.models import transformer as T
+
+SUPPORTED = ["qwen2-7b", "gemma2-9b", "yi-9b", "qwen2.5-14b", "tiny-dense"]
+UNSUPPORTED = ["rwkv6-7b", "qwen3-moe-30b-a3b", "olmoe-1b-7b",
+               "internvl2-2b", "seamless-m4t-large-v2", "jamba-v0.1-52b",
+               "tiny-moe"]
+
+
+def _cfgs(arch, **kw):
+    j = jconfigs.get_config(arch)
+    t = tconfigs.get_config(arch)
+    if arch.startswith("tiny"):
+        return j, t
+    return jconfigs.reduced(j, **kw), tconfigs.reduced(t, **kw)
+
+
+def _np_tree(tree):
+    return jax.tree.map(lambda x: np.asarray(x, np.float32), tree)
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            out.update(_flat(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: tree}
+
+
+def test_registry_is_a_copy():
+    assert sorted(tconfigs.REGISTRY) == sorted(jconfigs.REGISTRY)
+    for name, cfg in jconfigs.REGISTRY.items():
+        assert vars(tconfigs.get_config(name)) == vars(cfg)
+    assert tconfigs.get_config("qwen2-7b").padded_vocab == 155648
+    assert vars(tconfigs.reduced(tconfigs.get_config("gemma2-9b"))) == \
+        vars(jconfigs.reduced(jconfigs.get_config("gemma2-9b")))
+
+
+@pytest.mark.parametrize("arch", SUPPORTED)
+def test_params_from_jax_roundtrip(arch):
+    jcfg, tcfg = _cfgs(arch)
+    tree = _np_tree(j_init_params(jax.random.PRNGKey(0), jcfg))
+    flat = _flat(tree)
+    p32 = _flat(convert.params_from_jax(tree, tcfg, device="cpu",
+                                        compute_dtype=torch.float32))
+    p16 = _flat(convert.params_from_jax(tree, tcfg, device="cpu",
+                                        compute_dtype=torch.bfloat16))
+    assert set(p32) == set(flat) == set(p16)
+    assert ("/lm_head/w" in flat) == (not tcfg.tie_embeddings)
+    for key, ref in flat.items():
+        np.testing.assert_array_equal(p32[key].numpy(), ref)
+        matrix = key.rsplit("/", 1)[1] in ("w", "table")
+        assert p16[key].dtype == (torch.bfloat16 if matrix else torch.float32)
+        want = (torch.tensor(ref).bfloat16().float().numpy() if matrix
+                else ref)
+        np.testing.assert_array_equal(p16[key].float().numpy(), want)
+
+
+@pytest.mark.parametrize("arch", UNSUPPORTED)
+def test_unported_archs_raise(arch):
+    _, tcfg = _cfgs(arch)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(NotImplementedError):
+        T.init_params(tcfg, generator=gen, device="cpu")
+    with pytest.raises(NotImplementedError):
+        convert.params_from_jax({}, tcfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        T.init_cache(tcfg, 1, 8, device="cpu")
+
+
+@pytest.mark.parametrize("arch", SUPPORTED)
+def test_init_params_tree_and_distributions(arch):
+    """Same tree, shapes and per-leaf dtype rule as the JAX ``init_params``
+    (full-size shapes from ``jax.eval_shape``; values at reduced size),
+    with the reference's truncated-normal scales."""
+    jfull = jconfigs.get_config(arch)
+    shapes = _flat(jax.eval_shape(
+        lambda: j_init_params(jax.random.PRNGKey(0), jfull)))
+    meta = _flat(T.init_params(tconfigs.get_config(arch),
+                               generator=torch.Generator(),
+                               device="meta", dtype=torch.bfloat16))
+    assert set(meta) == set(shapes)
+    for key, s in shapes.items():
+        assert tuple(meta[key].shape) == tuple(s.shape), key
+
+    jcfg, tcfg = _cfgs(arch)
+    gen = torch.Generator().manual_seed(0)
+    got = _flat(T.init_params(tcfg, generator=gen, device="cpu",
+                              dtype=torch.float32))
+    ref = _flat(_np_tree(j_init_params(jax.random.PRNGKey(0), jcfg)))
+    for key, r in ref.items():
+        g = got[key].numpy()
+        assert g.shape == r.shape, key
+        if key.rsplit("/", 1)[1] in ("w", "table"):
+            # truncated normal on [-2, 2] sigma: std 0.8796 sigma
+            assert abs(g.std() / r.std() - 1) < 0.1, key
+            assert np.abs(g).max() <= np.abs(r).max() * 1.01 + 1e-6, key
+        else:
+            np.testing.assert_array_equal(g, r)   # zero biases, norms
+
+
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma2-9b"])
+def test_prefill_and_decode_logits_match_jax(arch, cache_dtype):
+    kw = {"n_layers": 2} if arch == "qwen2-7b" else {}
+    jcfg, tcfg = _cfgs(arch, **kw)
+    params = j_init_params(jax.random.PRNGKey(0), jcfg)
+    tparams = convert.params_from_jax(_np_tree(params), tcfg, device="cpu",
+                                      compute_dtype=torch.float32)
+    rng = np.random.default_rng(0)
+    B, S, L = 3, 12, 32
+    toks = rng.integers(0, jcfg.vocab, (B, S)).astype(np.int32)
+    lens = np.array([12, 5, 9], np.int32)                 # ragged rows
+    tol = 1e-4 if cache_dtype == "float32" else 1e-2
+
+    jc = j_init_cache(jcfg, B, L, dtype=getattr(jnp, cache_dtype))
+    jl, jc, jlen = j_prefill(params, jcfg, jnp.asarray(toks), jc,
+                             lengths=jnp.asarray(lens),
+                             compute_dtype=jnp.float32)
+    tc = T.init_cache(tcfg, B, L, dtype=getattr(torch, cache_dtype),
+                      device="cpu")
+    tl, tc, tlen = T.prefill(tparams, tcfg, torch.from_numpy(toks), tc,
+                             lengths=torch.from_numpy(lens),
+                             compute_dtype=torch.float32)
+    assert tl.shape == (B, 1, tcfg.padded_vocab)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=tol, rtol=tol)
+    np.testing.assert_array_equal(tlen.numpy(), np.asarray(jlen))
+    jlen, tlen = jlen + 1, tlen + 1
+    for _ in range(3):
+        nxt = rng.integers(0, jcfg.vocab, (B, 1)).astype(np.int32)
+        jl, jc, jlen = j_decode_step(params, jcfg, jnp.asarray(nxt), jc, jlen,
+                                     compute_dtype=jnp.float32)
+        tl, tc, tlen = T.decode_step(tparams, tcfg, torch.from_numpy(nxt), tc,
+                                     tlen, compute_dtype=torch.float32)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=tol,
+                                   rtol=tol)
+    for sub in jc:
+        for kv in ("k", "v"):
+            np.testing.assert_allclose(
+                tc[sub][kv].float().numpy(),
+                np.asarray(jc[sub][kv], np.float32), atol=tol, rtol=tol)
+
+
+def test_padded_vocab_rows_masked():
+    jcfg, tcfg = _cfgs("qwen2-7b", n_layers=1, vocab=300)
+    assert tcfg.padded_vocab == 512
+    params = j_init_params(jax.random.PRNGKey(1), jcfg)
+    tparams = convert.params_from_jax(_np_tree(params), tcfg, device="cpu",
+                                      compute_dtype=torch.float32)
+    toks = np.arange(8, dtype=np.int32)[None]
+    jl, _, _ = j_prefill(params, jcfg, jnp.asarray(toks),
+                         j_init_cache(jcfg, 1, 16), compute_dtype=jnp.float32)
+    tl, _, _ = T.prefill(tparams, tcfg, torch.from_numpy(toks),
+                         T.init_cache(tcfg, 1, 16, device="cpu"),
+                         compute_dtype=torch.float32)
+    assert (tl[..., 300:] == -1e30).all()
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                               rtol=1e-4)
+
+
+def test_decode_write_index_clamps_like_jax():
+    """Write indices outside the cache: JAX's dynamic_update_slice counts a
+    negative start from the end and clamps a start past the end to L-1;
+    the port maps them the same way instead of writing out of bounds."""
+    jcfg, tcfg = _cfgs("qwen2-7b", n_layers=1)
+    params = j_init_params(jax.random.PRNGKey(2), jcfg)
+    tparams = convert.params_from_jax(_np_tree(params), tcfg, device="cpu",
+                                      compute_dtype=torch.float32)
+    B, L = 3, 8
+    jc = j_init_cache(jcfg, B, L, dtype=jnp.float32)
+    tc = T.init_cache(tcfg, B, L, dtype=torch.float32, device="cpu")
+    lens = np.array([L + 3, 0, -2], np.int32)   # past the end, negative
+    nxt = np.array([[5], [7], [9]], np.int32)
+    jl, jc, _ = j_decode_step(params, jcfg, jnp.asarray(nxt), jc,
+                              jnp.asarray(lens), compute_dtype=jnp.float32)
+    tl, tc, _ = T.decode_step(tparams, tcfg, torch.from_numpy(nxt), tc,
+                              torch.from_numpy(lens),
+                              compute_dtype=torch.float32)
+    for kv in ("k", "v"):
+        np.testing.assert_allclose(tc["sub0"][kv].numpy(),
+                                   np.asarray(jc["sub0"][kv]), atol=1e-5)
+    written = tc["sub0"]["k"][0].abs().sum(dim=(-1, -2)) > 0   # [B, L]
+    assert written.sum() == B
+    assert written[0, L - 1] and written[1, L - 1] and written[2, L - 3]

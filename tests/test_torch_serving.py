@@ -1,0 +1,285 @@
+"""Serving data plane of the PyTorch port: twins of ``tests/test_serving.py``
+(the engine, the continuous batcher and the WRR slot scheduler), held
+against the JAX engine on the same weights at fp32: greedy tokens must be
+identical. Runs on the CPU (``device="cpu"``)."""
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")   # the reference; absent on the card's machine
+import jax.numpy as jnp
+
+from repro.configs import get_config as j_get_config
+from repro.configs import reduced as j_reduced
+from repro.models import init_params as j_init_params
+from repro.serving import GenerationEngine as JEngine
+from repro.serving import Request as JRequest
+from repro.serving import generate as j_generate
+from repro_torch.configs import get_config, reduced
+from repro_torch.models import convert
+from repro_torch.models import decode_step, init_cache, prefill
+from repro_torch.serving import (ContinuousBatcher, GenerationEngine,
+                                 Request, SlotScheduler, generate)
+
+F32 = torch.float32
+MAX_LEN = 48
+CPU = "cpu"
+
+
+@pytest.fixture(scope="module")
+def model():
+    jcfg = j_reduced(j_get_config("qwen2-7b"), n_layers=2)
+    jparams = j_init_params(jax.random.PRNGKey(0), jcfg)
+    cfg = reduced(get_config("qwen2-7b"), n_layers=2)
+    np_tree = jax.tree.map(lambda x: np.asarray(x, np.float32), jparams)
+    params = convert.params_from_jax(np_tree, cfg, device=CPU,
+                                     compute_dtype=F32)
+    return cfg, params, jcfg, jparams
+
+
+def _engine(cfg, params, **kw):
+    return GenerationEngine(cfg, params, max_len=kw.pop("max_len", MAX_LEN),
+                            compute_dtype=F32, device=CPU, **kw)
+
+
+def _ref_generate(cfg, params, prompt, max_new, max_len=MAX_LEN):
+    """Independent oracle: the per-request prefill+decode loop over the
+    port's models API (itself held against JAX in test_torch_models)."""
+    cache = init_cache(cfg, 1, max_len, device=CPU)
+    logits, cache, lengths = prefill(
+        params, cfg, torch.as_tensor(np.asarray(prompt, np.int32)[None]),
+        cache, compute_dtype=F32)
+    toks = [int(logits[0, -1, :cfg.vocab].argmax())]
+    lengths = lengths + 1
+    for _ in range(max_new - 1):
+        logits, cache, lengths = decode_step(
+            params, cfg, torch.tensor([[toks[-1]]], dtype=torch.int32),
+            cache, lengths, compute_dtype=F32)
+        toks.append(int(logits[0, 0, :cfg.vocab].argmax()))
+    return toks
+
+
+def _jax_engine_tokens(jcfg, jparams, prompts, max_new, slots, max_len=MAX_LEN):
+    eng = JEngine(jcfg, jparams, slots=slots, max_len=max_len,
+                  compute_dtype=jnp.float32)
+    reqs = [JRequest(i, p, max_new_tokens=max_new)
+            for i, p in enumerate(prompts)]
+    eng.admit_many(reqs)
+    while eng.active_slots():
+        eng.step()
+    return [r.tokens for r in reqs]
+
+
+# ------------------------------------------------------------ slot scheduler
+
+def _req(uid, tenant="t"):
+    return Request(uid, np.zeros(4, np.int32), 4, tenant=tenant)
+
+
+def test_slot_scheduler_wrr_interleaves_tenants():
+    s = SlotScheduler()
+    for i in range(6):
+        s.submit("greedy", _req(i, "greedy"))
+    s.submit("steady", _req(100, "steady"))
+    s.submit("steady", _req(101, "steady"))
+    first_pair = [r.tenant for r in s.take(2)]
+    assert "steady" in first_pair
+    rest = s.take(10)
+    assert len(rest) == 6
+    assert s.pending() == 0
+    assert s.dispatched == 8
+
+
+def test_slot_scheduler_fifo_baseline_starves():
+    s = SlotScheduler(fair=False)
+    for i in range(6):
+        s.submit("greedy", _req(i, "greedy"))
+    s.submit("steady", _req(100, "steady"))
+    order = [r.tenant for r in s.take(7)]
+    assert order.index("steady") == 6     # strictly behind the flood
+
+
+def test_slot_scheduler_weights_and_drain():
+    s = SlotScheduler()
+    s.register_tenant("a", weight=2)
+    s.register_tenant("b", weight=1)
+    for i in range(4):
+        s.submit("a", _req(i, "a"))
+        s.submit("b", _req(10 + i, "b"))
+    got = [r.tenant for r in s.take(3)]
+    assert got.count("a") == 2 and got.count("b") == 1   # 2:1 credit split
+    assert s.set_weight("b", 3) is True
+    assert s.set_weight("b", 3) is False                 # no-op
+    drained = s.drain_tenant("a")
+    assert len(drained) == 2 and all(r.tenant == "a" for r in drained)
+    assert s.pending_by_tenant() == {"b": 3}
+    stats = s.tenant_wait_stats()
+    assert set(stats) == {"a", "b"} and stats["a"][0] == 2
+    assert s.tenant_wait_stats() == {}                   # drained
+
+
+# ------------------------------------------------------------ engine exactness
+
+def test_ragged_batch_tokens_identical_to_jax_engine(model):
+    cfg, params, jcfg, jparams = model
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 9, 3, 12)]
+    eng = _engine(cfg, params, slots=4)
+    reqs = [Request(i, p, max_new_tokens=6) for i, p in enumerate(prompts)]
+    eng.admit_many(reqs)
+    while eng.active_slots():
+        eng.step()
+    want = _jax_engine_tokens(jcfg, jparams, prompts, 6, slots=4)
+    assert [r.tokens for r in reqs] == want
+    for r, p in zip(reqs, prompts):
+        assert r.tokens == _ref_generate(cfg, params, p, 6)
+    # fused admission: buckets {8, 16} -> 2 calls, zero full-cache copies,
+    # one host sync per admit call / decode step
+    assert eng.admit_calls == 2
+    assert eng.full_cache_copies == 0
+    assert eng.host_syncs == eng.admit_calls + eng.steps
+
+
+def test_generate_routes_through_engine(model):
+    cfg, params, jcfg, jparams = model
+    rng = np.random.default_rng(2)
+    batch = np.stack([rng.integers(0, cfg.vocab, 8).astype(np.int32)
+                      for _ in range(3)])
+    out = generate(cfg, params, batch, max_new_tokens=5, max_len=MAX_LEN,
+                   compute_dtype=F32, device=CPU)
+    assert out.shape == (3, 5)
+    want = j_generate(jcfg, jparams, batch, max_new_tokens=5,
+                      max_len=MAX_LEN, compute_dtype=jnp.float32)
+    np.testing.assert_array_equal(out, np.asarray(want))
+    with pytest.raises(ValueError):
+        generate(cfg, params, batch, max_new_tokens=MAX_LEN,
+                 max_len=MAX_LEN, compute_dtype=F32, device=CPU)
+
+
+def test_cache_write_index_stays_in_bounds(model):
+    """On the engine path the decode write index lengths-1 never passes
+    max_len-1, for active and inactive slots alike, also when requests run
+    into the max_len cap; tokens stay identical to the JAX engine there."""
+    cfg, params, jcfg, jparams = model
+    max_len = 16
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (13, 3, 9)]
+    eng = _engine(cfg, params, slots=4, max_len=max_len)
+    reqs = [Request(i, p, max_new_tokens=20) for i, p in enumerate(prompts)]
+    eng.admit_many(reqs)
+    while eng.active_slots():
+        # the step writes at call_lengths - 1 = slot_lengths, on every slot
+        assert int(eng._slot_lengths.max()) <= max_len - 1
+        eng.step()
+    assert int(eng._slot_lengths.max()) <= max_len - 1
+    assert [r.tokens for r in reqs] == _jax_engine_tokens(
+        jcfg, jparams, prompts, 20, slots=4, max_len=max_len)
+    assert [len(r.tokens) for r in reqs] == [max_len - 1 - len(p) + 1
+                                             for p in prompts]
+
+
+# ------------------------------------------------- admission under full slots
+
+def test_admission_under_full_slots_and_slot_reuse(model):
+    cfg, params, _, _ = model
+    eng = _engine(cfg, params, slots=2)
+    batcher = ContinuousBatcher(eng)
+    rng = np.random.default_rng(3)
+    uids = [batcher.submit(rng.integers(0, cfg.vocab, 8), max_new_tokens=4)
+            for _ in range(6)]
+    assert len(set(uids)) == 6
+    batcher.pump()
+    assert eng.active_slots() == 2
+    assert batcher.scheduler.pending() == 4
+    batcher.run_until_drained()
+    assert len(batcher.completed) == 6
+    assert eng.admitted == 6
+    assert eng.full_cache_copies == 0
+    assert eng.host_syncs == eng.admit_calls + eng.steps
+    for uid in uids:
+        req = batcher.completed[uid]
+        assert req.done and len(req.tokens) == 4
+        # exactness survives slot reuse
+        assert req.tokens == _ref_generate(cfg, params, req.prompt, 4)
+
+
+def test_engine_rejects_overlong_prompt(model):
+    cfg, params, _, _ = model
+    eng = _engine(cfg, params, slots=1, max_len=16)
+    with pytest.raises(ValueError):
+        eng.admit_many([Request(0, np.zeros(16, np.int32), 4)])
+    batcher = ContinuousBatcher(eng)
+    with pytest.raises(ValueError):
+        batcher.submit(np.zeros(16, np.int32))
+
+
+def test_engine_rejects_params_on_another_device(model):
+    cfg, params, _, _ = model
+    with pytest.raises(ValueError, match="parameters are on"):
+        GenerationEngine(cfg, params, device="meta")
+
+
+def test_batcher_thread_safe_submit_with_ttft(model):
+    cfg, params, _, _ = model
+    eng = _engine(cfg, params, slots=2)
+    batcher = ContinuousBatcher(eng)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab, 8) for _ in range(12)]
+    uids, ulock = [], threading.Lock()
+
+    def submit(chunk):
+        for p in chunk:
+            uid = batcher.submit(p, max_new_tokens=3)
+            with ulock:
+                uids.append(uid)
+
+    threads = [threading.Thread(target=submit, args=(prompts[i::4],))
+               for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+        assert not t.is_alive()
+    assert sorted(uids) == list(range(1, 13))
+    batcher.run_until_drained()
+    assert len(batcher.completed) == 12
+    for req in batcher.completed.values():
+        assert req.first_token_at >= req.submitted_at
+        assert req.finished_at >= req.first_token_at
+        assert req.first_token_at > 0.0
+
+
+# ------------------------------------------------- WRR ordering under flood
+
+def _flood(cfg, params, fair):
+    """Greedy tenant floods 10 requests ahead of 2 steady ones; return the
+    steady tenant's worst TTFT and the admission order of tenants."""
+    eng = _engine(cfg, params, slots=2)
+    batcher = ContinuousBatcher(eng, scheduler=SlotScheduler(fair=fair))
+    rng = np.random.default_rng(5)
+    steady = []
+    for _ in range(10):
+        batcher.submit(rng.integers(0, cfg.vocab, 8), max_new_tokens=6,
+                       tenant="greedy")
+    for _ in range(2):
+        steady.append(batcher.submit(rng.integers(0, cfg.vocab, 8),
+                                     max_new_tokens=6, tenant="steady"))
+    batcher.run_until_drained()
+    order = [r.tenant for r in sorted(batcher.completed.values(),
+                                      key=lambda r: r.admitted_at)]
+    ttft = max(batcher.completed[uid].first_token_at
+               - batcher.completed[uid].submitted_at for uid in steady)
+    return ttft, order
+
+
+def test_wrr_bounds_steady_tenant_ttft_under_flood(model):
+    cfg, params, _, _ = model
+    fair, fair_order = _flood(cfg, params, fair=True)
+    fifo, fifo_order = _flood(cfg, params, fair=False)
+    assert "steady" in fair_order[:2]            # admitted in the first pair
+    assert fifo_order[-2:] == ["steady", "steady"]
+    assert fair < fifo
