@@ -8,19 +8,28 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
 (any failure raises and the script exits non-zero):
 
 1. card: the card's name and power limit from ``nvidia-smi``;
-2. build: both hand-written kernels from ``src/repro_torch/kernels/*/csrc``,
-   one ``nvcc`` per source, started together;
+2. build: the four hand-written kernels from
+   ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` per source, started
+   together;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   qwen2-7b shapes (H 28, KV 4, D 128), with its time, the plain version's,
-   one ``scaled_dot_product_attention`` call's as a yardstick, and its bound;
-4. parity: qwen2-7b at full width, 2 layers, the same seeded bf16 weights
-   through the kernels and through the plain versions: prefill of 2 ragged
-   prompts plus 4 decode steps, logits compared;
-5. serving: qwen2-7b at full width and depth (28 layers, seeded bf16
-   weights) behind ``ContinuousBatcher`` with 3 WRR tenants; the launch
-   counters show that every prefill and decode attention went through the
-   two kernels. Then a ``torch.profiler`` trace of a few full-batch decode
-   steps gives the device's busy share and kernel mix.
+   the serving shapes (attention at qwen2-7b's H 28, KV 4, D 128; the RWKV6
+   scan at rwkv6-7b's H 64, D 64; the Mamba scan at jamba's d_inner 8192,
+   d_state 16), with its time, the plain version's, one PyTorch library
+   call's where one computes the same function, and its bound;
+4. parity: the same seeded bf16 weights through the kernels and through
+   the plain versions, prefill of 2 ragged prompts plus 4 decode steps,
+   logits compared: qwen2-7b and rwkv6-7b at full width with 2 layers,
+   jamba-v0.1-52b at full width with one period of 8 layers, in bf16 and
+   once more in fp32 (compute and cache);
+5. serving: each model behind ``ContinuousBatcher`` with 3 WRR tenants
+   (weights 1, 1, 2) and seeded bf16 weights: qwen2-7b at full width and
+   depth (28 layers), then a ``torch.profiler`` trace of a few full-batch
+   decode steps; rwkv6-7b at full width and depth (32 layers);
+   jamba-v0.1-52b at full width with one period (8 layers: 7 Mamba, 1
+   attention, 4 MoE of 16 experts; its 32 layers, ~104 GB in bf16, do not
+   fit one 80 GB card). Each model is freed before the next loads. The
+   launch counters, set to 0 before each drain and read after it, show that
+   every prefill and decode went through the kernels.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -28,6 +37,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -47,6 +57,10 @@ from repro_torch.kernels._build import build_all
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ops import decode_mha, mha
 from repro_torch.kernels.flash_decode import kernel as fd_kernel
+from repro_torch.kernels.mamba_scan import kernel as ms_kernel
+from repro_torch.kernels.mamba_scan.ops import mamba_scan
+from repro_torch.kernels.rwkv6_scan import kernel as rs_kernel
+from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
@@ -180,9 +194,93 @@ def decode_phase(gen):
             "bound_us": b_ms * 1e3, "bound_by": b_by}
 
 
-def parity_phase(cfg):
-    """Full-width qwen2-7b, 2 layers: kernels vs plain versions."""
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
+def rwkv6_phase(gen):
+    """RWKV6 scan kernel vs its plain version at rwkv6-7b shapes: B 2,
+    S 601 (not a multiple of the 16-step chunk), H 64, D 64, bf16 r/k/v,
+    fp32 decay and a nonzero initial state."""
+    B, S, H, D = 2, 601, 64, 64
+    dev = "cuda"
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    r, k, v = (randn(B, S, H, D, scale=0.5).bfloat16() for _ in range(3))
+    w = torch.exp(-torch.exp(randn(B, S, H, D, scale=0.5)))
+    u = randn(H, D, scale=0.1)
+    s0 = randn(B, H, D, D, scale=0.1)
+    out, s1 = rwkv6_scan(r, k, v, w, u, s0, impl="cuda")
+    ref, s2 = rwkv6_scan(r, k, v, w, u, s0, impl="torch")
+    torch.cuda.synchronize()
+    # out is bf16: one ulp at |out| ~ 4 is 3e-2 (the reference's 5e-2);
+    # the state is fp32, off by the chunked form's exp(+-cumsum) rounding
+    # (|cumsum| <= 80, fp32 ulp 7.6e-6) on values of magnitude ~1
+    errs = {"out": max_err(out, ref), "state": max_err(s1, s2)}
+    check("rwkv6_scan out (bf16)", errs["out"], 5e-2)
+    check("rwkv6_scan final state (fp32)", errs["state"], 1e-3)
+    ms = time_ms(lambda: rwkv6_scan(r, k, v, w, u, s0, impl="cuda"))
+    plain_ms = time_ms(lambda: rwkv6_scan(r, k, v, w, u, s0, impl="torch"),
+                       iters=5)
+    n = B * S * H * D
+    nbytes = 3 * 2 * n + 4 * n + 4 * H * D + 2 * 4 * B * H * D * D + 2 * n
+    # per state element r^T S (2) and w S + k v (3); the bonus (r.u.k) v
+    # is a per-row scalar times v: 4 per (b, s, h, column)
+    flops = 5 * n * D + 4 * n
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    return {"name": "rwkv6_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+            "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:64",
+            "shape": f"B{B} S{S} H{H} D{D} bf16 r/k/v, fp32 w, initial state",
+            "max_abs_err": errs["out"], "tolerance": 5e-2, "errors": errs,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by}
+
+
+def mamba_phase(gen):
+    """Mamba scan kernel vs its plain version at jamba shapes: Bt 2, S 601,
+    d_inner 8192, d_state 16, fp32, A = -(1..16) as jamba's A_log gives,
+    dt from a softplus, a nonzero initial state."""
+    Bt, S, DI, N = 2, 601, 8192, 16
+    dev = "cuda"
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x = randn(Bt, S, DI, scale=0.5)
+    dt = F.softplus(randn(Bt, S, DI))
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device=dev).expand(
+        DI, N).contiguous()
+    Bm, Cm = randn(Bt, S, N, scale=0.5), randn(Bt, S, N, scale=0.5)
+    D = torch.ones(DI, device=dev)
+    h0 = randn(Bt, DI, N, scale=0.5)
+    args = (x, dt, A, Bm, Cm, D, h0)
+    y, h1 = mamba_scan(*args, impl="cuda")
+    ref, h2 = mamba_scan(*args, impl="torch")
+    torch.cuda.synchronize()
+    # fp32 both; the chunked plain form's exp(+-cumsum) (|cumsum| <= 80,
+    # fp32 ulp 7.6e-6) leaves ~1e-5 relative error per state, summed over 16
+    errs = {"y": max_err(y, ref), "state": max_err(h1, h2)}
+    check("mamba_scan y (fp32)", errs["y"], 1e-3)
+    check("mamba_scan final state (fp32)", errs["state"], 1e-3)
+    ms = time_ms(lambda: mamba_scan(*args, impl="cuda"))
+    plain_ms = time_ms(lambda: mamba_scan(*args, impl="torch"), iters=5)
+    n = Bt * S * DI
+    nbytes = 4 * (3 * n + DI * N + 2 * Bt * S * N + DI + 2 * Bt * DI * N)
+    flops = 8 * n * N          # dt A, exp, h update (2), dt B x (2), C h, sum
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    return {"name": "mamba_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+            "replaces": "src/repro/kernels/mamba_scan/kernel.py:56",
+            "shape": f"Bt{Bt} S{S} DI{DI} N{N} fp32, initial state",
+            "max_abs_err": errs["y"], "tolerance": 1e-3, "errors": errs,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by}
+
+
+def parity_phase(cfg, n_layers, tol, why, compute_dtype=torch.bfloat16):
+    """Full width, ``n_layers`` layers: kernels vs plain versions on the
+    same seeded bf16 weights and inputs, computing (and caching K/V) in
+    ``compute_dtype``."""
+    cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = M.init_params(cfg2, generator=gen, device="cuda",
                            dtype=torch.bfloat16)
@@ -194,39 +292,44 @@ def parity_phase(cfg):
     steps = rng.integers(0, cfg.vocab, (4, 2, 1)).astype(np.int32)
     logits = {}
     for impl in ("cuda", "torch"):
-        cache = M.init_cache(cfg2, 2, 256, device="cuda")
+        cache = M.init_cache(cfg2, 2, 256, dtype=compute_dtype,
+                             device="cuda")
         out, cache, lengths = M.prefill(
             params, cfg2, torch.from_numpy(toks).cuda(), cache,
-            lengths=torch.from_numpy(lens).cuda(), impl=impl)
+            lengths=torch.from_numpy(lens).cuda(), impl=impl,
+            compute_dtype=compute_dtype)
         seq = [out]
         lengths = lengths + 1
         for s in steps:
             out, cache, lengths = M.decode_step(
                 params, cfg2, torch.from_numpy(s).cuda(), cache, lengths,
-                impl=impl)
+                impl=impl, compute_dtype=compute_dtype)
             seq.append(out)
         logits[impl] = torch.stack(seq)[..., :cfg.vocab].float()
     a, b = logits["cuda"], logits["torch"]
     assert torch.isfinite(a).all() and a.shape == (5, 2, 1, cfg.vocab)
     err = max_err(a, b)
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-    print(f"parity qwen2-7b full width, 2 layers, bf16: logits max_abs_err="
-          f"{err!r} (logit std {float(b.std())!r}), argmax agreement {agree!r}")
-    # bf16 attention outputs may differ by an ulp between the two paths;
-    # through 2 layers that moves logits of std ~1 by a few bf16 ulps
-    check("parity logits", err, 0.1)
+    print(f"parity {cfg.name} full width, {n_layers} layers, "
+          f"{str(compute_dtype).split('.')[-1]}: logits "
+          f"max_abs_err={err!r} (logit std {float(b.std())!r}), argmax "
+          f"agreement {agree!r}; tolerance {tol}: {why}")
+    check(f"parity logits {cfg.name} {compute_dtype}", err, tol)
     del params
 
 
-def serving_phase(cfg, kernels):
-    """qwen2-7b, full width and depth, served to 3 WRR tenants."""
+def serving_phase(cfg, kernels, *, n_req, max_new, profile=False):
+    """``cfg`` served to 3 WRR tenants behind ``ContinuousBatcher``; the
+    kernels' launch counts over the measured drain must be
+    ``expected_launches``. Returns those counts."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.monotonic()
     params = M.init_params(cfg, generator=gen, device="cuda",
                            dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    print(f"serving: init_params {cfg.name} ({cfg.n_layers} layers, bf16) "
-          f"{time.monotonic() - t0:.1f} s")
+    w_total = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"serving: init_params {cfg.name} ({cfg.n_layers} layers, bf16 "
+          f"matrices, {w_total / 1e9:.2f} GB) {time.monotonic() - t0:.1f} s")
     engine = S.GenerationEngine(cfg, params, slots=8, max_len=1024)
     sched = S.SlotScheduler()
     weights = {"tenant-a": 1, "tenant-b": 1, "tenant-c": 2}
@@ -252,7 +355,6 @@ def serving_phase(cfg, kernels):
 
     engine.step = timed_step
     before = engine.counters()
-    n_req, max_new = 24, 32
     uids = {}
     for i in range(n_req):
         tenant = list(weights)[i * len(weights) // n_req]   # tenant-major flood
@@ -274,33 +376,56 @@ def serving_phase(cfg, kernels):
     for uid, r in done.items():
         assert r.done and len(r.tokens) == max_new, (uid, len(r.tokens))
         assert all(0 <= t < cfg.vocab for t in r.tokens)
-    assert launches["flash_attention"] == cfg.n_layers * d["admit_calls"], \
-        (launches, d)
-    assert launches["flash_decode"] == cfg.n_layers * d["steps"], (launches, d)
+    want = expected_launches(cfg, d)
+    assert launches == want, (launches, want, d)
+    assert all(launches[k] > 0 for k, n in want.items() if n), launches
     assert d["host_syncs"] == d["admit_calls"] + d["steps"], d
     assert after["full_cache_copies"] == 0
-    assert launches["flash_attention"] > 0 and launches["flash_decode"] > 0
 
     w_bytes = sum(t.numel() * t.element_size()
                   for t in _leaves(params) if t.dim() >= 2)
-    w_bytes -= params["embed"]["table"].numel() * 2    # only rows gathered
+    table = params["embed"]["table"]
+    w_bytes -= table.numel() * table.element_size()    # only rows gathered
     cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(engine.cache))
     step_bound_ms = (w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
     tokens = sum(len(r.tokens) for r in done.values())
-    print(f"serving: {n_req} requests, {tokens} tokens in {wall:.3f} s = "
-          f"{tokens / wall:.1f} tokens/s; counters {d}; launches {launches}")
+    print(f"serving {cfg.name}: {n_req} requests, {tokens} tokens in "
+          f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; counters {d}; "
+          f"launches {launches}")
     for t in weights:
         ttft = sorted((r.first_token_at - r.submitted_at) * 1e3
                       for r in done.values() if r.tenant == t)
-        print(f"serving: {t} (weight {weights[t]}) n={len(ttft)} TTFT p50 "
-              f"{np.percentile(ttft, 50):.1f} ms p99 "
-              f"{np.percentile(ttft, 99):.1f} ms")
-    print(f"serving: decode step median {np.median(step_ms):.2f} ms over "
-          f"{len(step_ms)} steps; bound {step_bound_ms:.2f} ms "
+        print(f"serving {cfg.name}: {t} (weight {weights[t]}) n={len(ttft)} "
+              f"TTFT p50 {np.percentile(ttft, 50):.1f} ms p99 "
+              f"{np.percentile(ttft, 99):.1f} ms max {ttft[-1]:.1f} ms")
+    print(f"serving {cfg.name}: decode step median {np.median(step_ms):.2f} ms "
+          f"over {len(step_ms)} steps; bound {step_bound_ms:.2f} ms "
           f"({(w_bytes + cache_bytes) / 1e9:.2f} GB of weights and cache per "
           f"step at 3.35 TB/s)")
-    profile_decode(cfg, batcher, engine, rng)
+    if profile:
+        profile_decode(cfg, batcher, engine, rng)
+    engine.step = step          # break the engine <-> closure cycle
     return launches
+
+
+def expected_launches(cfg, counters):
+    """Each kernel's launches over a drain: one per attention or scan layer
+    per admit call (prefill; every prompt is >= 16 tokens, so no one-token
+    prefill takes the decode recurrence), one per attention layer per
+    decode step (the scans' decode steps are plain PyTorch, as in the
+    reference)."""
+    layers = {kind: cfg.n_blocks * cfg.layer_pattern.count(kind)
+              for kind in "glmr"}
+    attn = layers["g"] + layers["l"]
+    admits, steps = counters["admit_calls"], counters["steps"]
+    return {"flash_attention": attn * admits, "flash_decode": attn * steps,
+            "rwkv6_scan": layers["r"] * admits,
+            "mamba_scan": layers["m"] * admits}
+
+
+def free_card():
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def profile_decode(cfg, batcher, engine, rng, n_steps=4):
@@ -363,24 +488,54 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}")
 
-    kernels = [fa_kernel.KERNEL, fd_kernel.KERNEL]
+    kernels = [fa_kernel.KERNEL, fd_kernel.KERNEL, rs_kernel.KERNEL,
+               ms_kernel.KERNEL]
     t0 = time.monotonic()
     build_all(kernels)
-    print(f"build: both kernels in {time.monotonic() - t0:.1f} s")
+    print(f"build: {len(kernels)} kernels in {time.monotonic() - t0:.1f} s")
     for k in kernels:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"build {k.name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    rows = [prefill_phase(gen), decode_phase(gen)]
+    rows = [prefill_phase(gen), decode_phase(gen), rwkv6_phase(gen),
+            mamba_phase(gen)]
     for row in rows:
         print("kernel_check " + json.dumps(row))
+    free_card()
 
-    cfg = get_config("qwen2-7b")
-    parity_phase(cfg)
-    torch.cuda.empty_cache()
-    launches = serving_phase(cfg, kernels)
+    qwen2, rwkv6 = get_config("qwen2-7b"), get_config("rwkv6-7b")
+    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=8)
+    bf16_ulps = ("bf16 attention and scan outputs may differ by an ulp "
+                 "between the two paths; through the layers that moves "
+                 "logits of std ~1 by a few bf16 ulps")
+    parity_phase(qwen2, 2, 0.1, bf16_ulps)
+    parity_phase(rwkv6, 2, 0.1, bf16_ulps)
+    parity_phase(jamba, 8, 0.25,
+                 bf16_ulps + "; an ulp can also flip a near-tie of the "
+                 "top-2 router for one token, which moves that token by "
+                 "one expert's output")
+    parity_phase(jamba, 8, 2e-3,
+                 "fp32 compute and cache, bf16 weights: the kernels differ "
+                 "from the chunked plain scans by ~1e-5 relative (their "
+                 "exp(+-cumsum)), and no bf16 rounding amplifies it",
+                 compute_dtype=torch.float32)
+    free_card()
+
+    by_path = {}
+    by_path["qwen2-7b"] = serving_phase(qwen2, kernels,
+                                        n_req=24, max_new=32, profile=True)
+    free_card()
+    by_path["rwkv6-7b"] = serving_phase(rwkv6, kernels,
+                                        n_req=24, max_new=32)
+    free_card()
+    by_path["jamba-v0.1-52b/8"] = serving_phase(jamba, kernels,
+                                                n_req=24, max_new=32)
+    free_card()
+    launches = {k.name: sum(p[k.name] for p in by_path.values())
+                for k in kernels}
+    print("launches_by_path " + json.dumps(by_path))
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,0 +1,92 @@
+"""RWKV6 wkv scan as a hand-written Hopper kernel (``csrc/rwkv6_scan.cu``),
+the port of the Pallas TPU kernel
+``repro.kernels.rwkv6_scan.kernel.rwkv6_scan_pallas``.
+
+The wrapper checks device, dtype, shape and contiguity, allocates the
+output and the final state with ``torch.empty``, launches on the current
+stream and counts its launches in ``KERNEL.launches``. It takes CUDA
+tensors only: the plain version for the CPU is ``ops._rwkv6_torch``.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+from .._build import CudaKernel, stream_ptr
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+KERNEL = CudaKernel(
+    "rwkv6_scan", Path(__file__).resolve().parent / "csrc" / "rwkv6_scan.cu",
+    "rwkv6_scan_fwd", [_P] * 8 + [_I] * 6 + [_P])
+
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (8, 16, 32, 64, 128)
+MIN_COLUMNS = 8        # v columns per block: 4 lanes each, a whole warp
+
+
+def _check(r, k, v, w, u, state) -> None:
+    named = [("r", r), ("k", k), ("v", v), ("w", w), ("u", u)]
+    if state is not None:
+        named.append(("state", state))
+    for name, t in named:
+        if not t.is_cuda or t.device != r.device:
+            raise ValueError(f"rwkv6_scan: {name} is on {t.device}; the "
+                             "kernel takes CUDA tensors on one device only")
+        if not t.is_contiguous():
+            raise ValueError(f"rwkv6_scan: {name} must be contiguous")
+    if r.dtype not in DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"rwkv6_scan: r/k/v must all be float32 or all "
+                        f"bfloat16, got {r.dtype}/{k.dtype}/{v.dtype}")
+    for name, t in named[3:]:
+        if t.dtype != torch.float32:
+            raise TypeError(f"rwkv6_scan: {name} must be float32, got {t.dtype}")
+    if r.dim() != 4:
+        raise ValueError(f"rwkv6_scan: r {tuple(r.shape)} must be [B,S,H,D]")
+    B, S, H, D = r.shape
+    if k.shape != r.shape or v.shape != r.shape or w.shape != r.shape:
+        raise ValueError(f"rwkv6_scan: r {tuple(r.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, w {tuple(w.shape)}")
+    if tuple(u.shape) != (H, D):
+        raise ValueError(f"rwkv6_scan: u {tuple(u.shape)}, expected {(H, D)}")
+    if state is not None and tuple(state.shape) != (B, H, D, D):
+        raise ValueError(f"rwkv6_scan: state {tuple(state.shape)}, expected "
+                         f"{(B, H, D, D)}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"rwkv6_scan: head size {D} not in {HEAD_DIMS}")
+
+
+def _vsplit(blocks: int, D: int, device: torch.device) -> int:
+    """Blocks per (row, head): split the v columns until the grid has at
+    least two blocks per SM, keeping MIN_COLUMNS columns per block."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    vsplit = 1
+    while blocks * vsplit < 2 * sms and D // (2 * vsplit) >= MIN_COLUMNS:
+        vsplit *= 2
+    return vsplit
+
+
+def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               w: torch.Tensor, u: torch.Tensor,
+               state: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r,k,v: [B,S,H,D] fp32|bf16; w: [B,S,H,D] fp32; u: [H,D] fp32;
+    state: [B,H,D,D] fp32 or None. Returns (out in r's dtype, state)."""
+    _check(r, k, v, w, u, state)
+    B, S, H, D = r.shape
+    out = torch.empty_like(r)
+    s_out = torch.empty((B, H, D, D), dtype=torch.float32, device=r.device)
+    if B * H == 0:
+        return out, s_out
+    vsplit = _vsplit(B * H, D, r.device)
+    fn = KERNEL.fn()
+    KERNEL.launches += 1
+    rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), None if state is None else state.data_ptr(),
+            out.data_ptr(), s_out.data_ptr(), B, S, H, D, DTYPES[r.dtype],
+            vsplit, stream_ptr(r))
+    KERNEL.check(rc)
+    return out, s_out

@@ -1,4 +1,5 @@
-"""Model substrate of the port: the dense attention decoder stack."""
+"""Model substrate of the port: the decoder stack (attention, RWKV6 and
+Mamba layers; dense or MoE feed-forwards)."""
 from .config import SHAPES, ModelConfig, ShapeConfig, reduced
 from .transformer import (cache_axes, decode_step, forward, init_cache,
                           init_params, logits_head, prefill)

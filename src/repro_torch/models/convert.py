@@ -5,10 +5,11 @@ port's parameters (the same tree of tensors).
 Layout: blocks stacked on the leading ``n_blocks`` axis with sub-layers
 ``sub{i}``; dense weights ``w`` [in, out] with an optional ``b``;
 ``embed.table``, ``final_norm`` and ``lm_head`` (absent when
-``tie_embeddings``). Matrices (``w``, ``table``) are stored in
-``compute_dtype`` and everything else in fp32. Every use casts to the
-compute dtype first, as the reference does, so this equals its numerics
-while halving the footprint in bf16.
+``tie_embeddings``). A leaf is stored in ``compute_dtype`` only where the
+reference casts it to the compute dtype at every use, and in fp32
+everywhere else (``Param.compute`` in ``transformer.param_specs``), so this
+equals the reference's numerics while halving the footprint of the
+matrices in bf16.
 """
 from __future__ import annotations
 
@@ -19,33 +20,30 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .config import ModelConfig
-from .transformer import check_supported
-
-MATRIX_LEAVES = ("w", "table")
+from .layers import Param
+from .transformer import param_specs
 
 
 def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig, *,
                     device: DeviceLike = None,
                     compute_dtype: torch.dtype = torch.bfloat16
                     ) -> Dict[str, Any]:
-    check_supported(cfg)
+    spec = param_specs(cfg)
     device = resolve_device(device)
-    expected = {"embed", "final_norm", "blocks"}
-    if not cfg.tie_embeddings:
-        expected.add("lm_head")
-    if set(np_tree) != expected:
-        raise ValueError(f"{cfg.name}: parameter tree has {sorted(np_tree)}, "
-                         f"expected {sorted(expected)}")
-    table = np.shape(np_tree["embed"]["table"])
+    table = np.shape(np_tree.get("embed", {}).get("table"))
     if tuple(table) != (cfg.padded_vocab, cfg.d_model):
         raise ValueError(f"{cfg.name}: embed table {table}, expected "
                          f"{(cfg.padded_vocab, cfg.d_model)}")
 
-    def conv(tree: Any, name: str) -> Any:
-        if isinstance(tree, dict):
-            return {k: conv(v, k) for k, v in tree.items()}
-        arr = np.array(tree, dtype=np.float32)   # a writable copy
-        dtype = compute_dtype if name in MATRIX_LEAVES else torch.float32
-        return torch.from_numpy(arr).to(device=device, dtype=dtype)
+    def conv(tree: Any, p: Any, path: str) -> Any:
+        if isinstance(p, Param):
+            arr = np.array(tree, dtype=np.float32)   # a writable copy
+            return torch.from_numpy(arr).to(device=device,
+                                            dtype=p.dtype(compute_dtype))
+        if not isinstance(tree, dict) or set(tree) != set(p):
+            have = sorted(tree) if isinstance(tree, dict) else type(tree)
+            raise ValueError(f"{cfg.name}: parameter tree at '{path}' has "
+                             f"{have}, expected {sorted(p)}")
+        return {k: conv(tree[k], p[k], f"{path}/{k}") for k in tree}
 
-    return conv(np_tree, "")
+    return conv(np_tree, spec, "")

@@ -9,10 +9,48 @@ parameters to the compute dtype before use, exactly as the reference does.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class Param:
+    """One parameter for ``init_params`` to create: its shape and its
+    initial values, a truncated normal of ``stddev`` when that is positive,
+    else the values of ``fill()`` when given, else the constant ``value``.
+    ``compute`` marks a leaf the reference casts to the compute dtype at
+    every use: it is stored in the compute dtype, every other leaf in fp32
+    (``init_params`` and ``params_from_jax`` both read it)."""
+    shape: Tuple[int, ...]
+    stddev: float = 0.0
+    value: float = 0.0
+    fill: Optional[Callable[[], torch.Tensor]] = None
+    compute: bool = False
+
+    def dtype(self, compute_dtype: torch.dtype) -> torch.dtype:
+        return compute_dtype if self.compute else torch.float32
+
+
+def dense_spec(d_in: int, d_out: int, *, bias: bool = False,
+               stddev: Optional[float] = None,
+               compute: bool = True) -> Dict[str, Param]:
+    """``init_dense``'s tree: ``w`` [in, out] with stddev ``d_in ** -0.5``
+    unless given, stored in the compute dtype unless ``compute`` is False,
+    and a zero fp32 bias ``b`` [out] when asked for."""
+    p = {"w": Param((d_in, d_out),
+                    stddev if stddev is not None else d_in ** -0.5,
+                    compute=compute)}
+    if bias:
+        p["b"] = Param((d_out,))
+    return p
+
+
+def glu_spec(d_model: int, d_ff: int) -> Dict[str, Any]:
+    return {"wi": dense_spec(d_model, d_ff), "wg": dense_spec(d_model, d_ff),
+            "wo": dense_spec(d_ff, d_model, stddev=d_ff ** -0.5)}
 
 
 def truncated_normal_(t: torch.Tensor, stddev: float,
@@ -41,6 +79,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
     if zero_centered:
         s = 1.0 + s
     return (xn * s).to(x.dtype)
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               num_groups: int, eps: float = 64e-5) -> torch.Tensor:
+    """GroupNorm over the last dim with fp32 statistics (the RWKV wkv
+    output norm), cast back to x.dtype."""
+    *lead, d = x.shape
+    xf = x.float().reshape(*lead, num_groups, d // num_groups)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = xf.var(dim=-1, keepdim=True, unbiased=False)
+    xn = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (xn * scale.float() + bias.float()).to(x.dtype)
 
 
 # ----------------------------------------------------------------- rotary

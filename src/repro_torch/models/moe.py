@@ -1,0 +1,116 @@
+"""Mixture-of-Experts FFN (twin of ``repro.models.moe``), single-device
+path (the reference's ``_moe_local`` with ``ep_axis=None``).
+
+Tokens are routed with an fp32 router and top-k (renormalised when
+``router_renorm``), sort-dispatched with a stable sort into a static
+[E, C, D] buffer (rank within the expert; tokens ranked at or past the
+capacity C are dropped), run through one batched GLU per projection, and
+combined back with a scatter-add weighted by their gates. The expert
+products are plain ``torch.einsum``s, as the reference leaves them to XLA
+outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .layers import Param
+
+
+def init_moe(cfg: ModelConfig) -> Dict[str, Param]:
+    """The reference's parameter tree (``repro.models.moe.init_moe``) as
+    :class:`Param` specs; ``transformer.init_params`` creates them."""
+    d, f, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    return {"router": Param((d, e), d ** -0.5),
+            "w1": Param((e, d, f), d ** -0.5, compute=True),
+            "wg": Param((e, d, f), d ** -0.5, compute=True),
+            "w2": Param((e, f, d), f ** -0.5, compute=True)}
+
+
+def _capacity(tokens: int, cfg: ModelConfig) -> int:
+    c = int(tokens * cfg.top_k / cfg.n_experts * cfg.capacity_factor)
+    return max(8, -(-c // 8) * 8)
+
+
+def _gates(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """fp32 router, top-k, optional renormalisation: (gates, experts) [T, K]."""
+    probs = F.softmax(x.float() @ router.float(), dim=-1)
+    gates, eidx = torch.topk(probs, cfg.top_k, dim=-1)
+    if cfg.router_renorm:
+        gates = gates / (gates.sum(-1, keepdim=True) + 1e-9)
+    return gates, eidx
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+    """Stable sort of the T*K (token, expert) pairs by expert. Returns
+    (expert, token, gate, rank within the expert, kept) in sorted order,
+    with ``kept = rank < capacity``."""
+    T = x.shape[0]
+    gates, eidx = _gates(x, router, cfg)
+    e_flat = eidx.reshape(-1)
+    t_flat = torch.arange(T, device=x.device).repeat_interleave(cfg.top_k)
+    order = torch.sort(e_flat, stable=True).indices
+    e_s, t_s, g_s = e_flat[order], t_flat[order], gates.reshape(-1)[order]
+    counts = torch.bincount(e_flat, minlength=cfg.n_experts)
+    offsets = counts.cumsum(0) - counts
+    rank = torch.arange(e_s.shape[0], device=x.device) - offsets[e_s]
+    return e_s, t_s, g_s, rank, rank < _capacity(T, cfg)
+
+
+def _moe_local(x: torch.Tensor, router, w1, wg, w2, cfg: ModelConfig,
+               compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x: [B, S, D] -> [B, S, D] in the compute dtype."""
+    Bl, Sl, D = x.shape
+    x = x.reshape(Bl * Sl, D)
+    T = x.shape[0]
+    E, C = cfg.n_experts, _capacity(T, cfg)
+    e_s, t_s, g_s, rank, keep = _route(x, router, cfg)
+    rank_c = torch.where(keep, rank, 0)
+    e_c = torch.where(keep, e_s, 0)
+
+    # dispatch into [E, C, D]: dropped pairs add zero at (0, 0)
+    xt = x.to(compute_dtype)
+    dispatch = torch.zeros((E, C, D), dtype=compute_dtype, device=x.device)
+    dispatch.index_put_((e_c, rank_c),
+                        xt[t_s] * keep[:, None].to(compute_dtype),
+                        accumulate=True)
+
+    # batched expert GLU: one batched product per projection
+    h = torch.einsum("ecd,edf->ecf", dispatch, w1.to(compute_dtype))
+    g = torch.einsum("ecd,edf->ecf", dispatch, wg.to(compute_dtype))
+    h = F.silu(g.float()).to(compute_dtype) * h
+    y = torch.einsum("ecf,efd->ecd", h, w2.to(compute_dtype))
+
+    # combine: scatter-add each kept pair's output times its gate
+    vals = y[e_c, rank_c] * (g_s * keep)[:, None].to(compute_dtype)
+    out = torch.zeros((T, D), dtype=compute_dtype, device=x.device)
+    out.index_add_(0, t_s, vals)
+    return out.reshape(Bl, Sl, D)
+
+
+def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+              compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """x: [B, S, D] -> [B, S, D] in x's dtype."""
+    out = _moe_local(x, p["router"], p["w1"], p["wg"], p["w2"], cfg,
+                     compute_dtype)
+    return out.to(x.dtype)
+
+
+def moe_ref(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig
+            ) -> torch.Tensor:
+    """Dense oracle: every expert for every token in fp32, masked combine
+    (no capacity, so no drops). O(T*E*F): small shapes only."""
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D).float()
+    gates, eidx = _gates(xt, p["router"], cfg)
+    h = torch.einsum("td,edf->tef", xt, p["w1"].float())
+    g = torch.einsum("td,edf->tef", xt, p["wg"].float())
+    y = torch.einsum("tef,efd->ted", F.silu(g) * h, p["w2"].float())
+    mask = torch.zeros((xt.shape[0], cfg.n_experts), device=x.device)
+    mask.scatter_add_(1, eidx, gates)
+    out = torch.einsum("ted,te->td", y, mask)
+    return out.reshape(B, S, D).to(x.dtype)

@@ -1,0 +1,130 @@
+"""RWKV6 "Finch" block (twin of ``repro.models.rwkv6``): data-dependent
+decay time mixing and squared-ReLU channel mixing.
+
+Token shift with data-dependent linear interpolation (ddlerp, low-rank),
+decay w = exp(-exp(.)) from a LoRA per token and channel, bonus u, a
+per-head wkv state of head_size x head_size, group norm on the wkv output.
+The wkv recurrence runs through ``kernels/rwkv6_scan`` (the Hopper kernel
+for CUDA tensors, the chunked plain version on the CPU); a single token
+against a state (decode, or a one-token prompt) takes
+``rwkv6_decode_step``. Decode carries (shift_tm, shift_cm, wkv_state).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.rwkv6_scan import ops as wkv_ops
+from .config import ModelConfig
+from .layers import Param, dense_spec, group_norm
+
+LORA_MIX = 32
+LORA_DECAY = 64
+
+
+def init_rwkv_block(cfg: ModelConfig) -> Dict[str, Any]:
+    """The reference's parameter tree (``repro.models.rwkv6.init_rwkv_block``)
+    as :class:`Param` specs; ``transformer.init_params`` creates them."""
+    d, hs = cfg.d_model, cfg.rwkv_head_size
+    H = d // hs
+    return {
+        "tm": {
+            "maa_x": Param((d,)),
+            "maa": Param((5, d)),                          # w, k, v, r, g
+            "mix_w1": Param((d, 5 * LORA_MIX), 1e-2),
+            "mix_w2": Param((5, LORA_MIX, d), 1e-2),
+            "decay_w0": Param((d,), value=-1.0),
+            "decay_w1": Param((d, LORA_DECAY), 1e-2),
+            "decay_w2": Param((LORA_DECAY, d), 1e-2),
+            "bonus": Param((H, hs), 0.1),
+            "wr": dense_spec(d, d), "wk": dense_spec(d, d),
+            "wv": dense_spec(d, d), "wg": dense_spec(d, d),
+            "wo": dense_spec(d, d),
+            "gn_scale": Param((d,), value=1.0),
+            "gn_bias": Param((d,)),
+        },
+        "cm": {
+            "maa_k": Param((d,)),
+            "maa_r": Param((d,)),
+            "wk": dense_spec(d, cfg.d_ff),
+            "wv": dense_spec(cfg.d_ff, d, stddev=cfg.d_ff ** -0.5),
+            "wr": dense_spec(d, d),
+        },
+    }
+
+
+def _token_shift(x: torch.Tensor,
+                 prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Shift right by one along seq; position 0 gets ``prev`` (or zeros)."""
+    if x.shape[1] == 1:
+        return prev if prev is not None else torch.zeros_like(x)
+    shifted = F.pad(x, (0, 0, 1, 0))[:, :-1]
+    if prev is not None:
+        shifted[:, 0:1] = prev
+    return shifted
+
+
+def time_mix(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
+             shift_state: Optional[torch.Tensor] = None,
+             wkv_state: Optional[torch.Tensor] = None,
+             impl: Optional[str] = None, compute_dtype=torch.bfloat16):
+    """Returns (out, new_shift_state, new_wkv_state)."""
+    B, S, D = x.shape
+    hs = cfg.rwkv_head_size
+    H = D // hs
+    xf = x.float()
+    dx = _token_shift(xf, shift_state) - xf
+    tm = p["tm"]
+
+    # ddlerp: data-dependent interpolation coefficients from a LoRA
+    xxx = xf + dx * tm["maa_x"]
+    lora = torch.tanh(xxx @ tm["mix_w1"]).reshape(B, S, 5, LORA_MIX)
+    mix = torch.einsum("bsfl,fld->bsfd", lora, tm["mix_w2"])     # [B,S,5,D]
+    maa = tm["maa"][None, None]
+    xw, xk, xv, xr, xg = [
+        (xf + dx * (maa[:, :, i] + mix[:, :, i])).to(compute_dtype)
+        for i in range(5)]
+
+    def proj(t, name):
+        return t @ tm[name]["w"].to(compute_dtype)
+
+    r = proj(xr, "wr").reshape(B, S, H, hs)
+    k = proj(xk, "wk").reshape(B, S, H, hs)
+    v = proj(xv, "wv").reshape(B, S, H, hs)
+    g = F.silu(proj(xg, "wg").float())
+
+    # data-dependent decay, clamped into the numerically safe band
+    dlog = tm["decay_w0"] + torch.tanh(xw.float() @ tm["decay_w1"]) \
+        @ tm["decay_w2"]                                          # [B,S,D]
+    neg = (-torch.exp(dlog)).clamp(-wkv_ops.LOG_DECAY_CLAMP, -1e-6)
+    w = torch.exp(neg).reshape(B, S, H, hs)
+
+    if S == 1 and wkv_state is not None:
+        out, wkv_state = wkv_ops.rwkv6_decode_step(
+            r[:, 0], k[:, 0], v[:, 0], w[:, 0], tm["bonus"], wkv_state)
+        out = out[:, None]
+    else:
+        out, wkv_state = wkv_ops.rwkv6_scan(r, k, v, w, tm["bonus"],
+                                            wkv_state, impl=impl)
+    out = group_norm(out.reshape(B, S, D), tm["gn_scale"], tm["gn_bias"],
+                     num_groups=H)
+    out = (out.float() * g).to(compute_dtype)
+    return proj(out, "wo"), xf[:, -1:], wkv_state
+
+
+def channel_mix(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
+                shift_state: Optional[torch.Tensor] = None,
+                compute_dtype=torch.bfloat16):
+    """Squared-ReLU channel mix. Returns (out, new_shift_state)."""
+    xf = x.float()
+    dx = _token_shift(xf, shift_state) - xf
+    cm = p["cm"]
+    xk = (xf + dx * cm["maa_k"]).to(compute_dtype)
+    xr = (xf + dx * cm["maa_r"]).to(compute_dtype)
+    k = xk @ cm["wk"]["w"].to(compute_dtype)
+    k = torch.square(F.relu(k.float())).to(compute_dtype)
+    v = k @ cm["wv"]["w"].to(compute_dtype)
+    rgate = torch.sigmoid((xr @ cm["wr"]["w"].to(compute_dtype)).float())
+    return (rgate * v.float()).to(compute_dtype), xf[:, -1:]

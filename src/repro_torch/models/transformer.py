@@ -1,17 +1,18 @@
-"""Decoder LM for the dense attention layer kinds (twin of
-``repro.models.transformer``).
+"""Decoder LM (twin of ``repro.models.transformer``) for the layer kinds
+"g" (global attention), "l" (local sliding-window attention), "m" (Mamba)
+and "r" (RWKV6), with dense GLU or MoE feed-forward layers.
 
 A model is a tiled stack of blocks, each instantiating
-``cfg.layer_pattern`` ("g" global attention, "l" local sliding-window
-attention). Parameters keep the reference's tree: blocks are stacked on a
-leading ``n_blocks`` axis and sub-layers are named ``sub{i}``; the forward
-pass loops over blocks in Python where the reference scans. Recurrent
-("m", "r"), MoE, encoder-decoder and frontend models are not ported yet
-and raise ``NotImplementedError``.
+``cfg.layer_pattern`` (e.g. "mmmmgmmm" for jamba, "r" for rwkv6).
+Parameters keep the reference's tree: blocks are stacked on a leading
+``n_blocks`` axis and sub-layers are named ``sub{i}``; the forward pass
+loops over blocks in Python where the reference scans. Encoder-decoder and
+frontend models are not ported yet and raise ``NotImplementedError``.
 
-Matrices are stored in the compute dtype and norms and biases in fp32;
-every use casts first, as the reference does, so the numerics are the
-reference's. The decode cache is updated in place.
+A parameter is stored in the compute dtype only where the reference casts
+it to the compute dtype at every use (``Param.compute``), and in fp32
+elsewhere, so the numerics are the reference's. The decode cache, the
+recurrent states included, is updated in place.
 """
 from __future__ import annotations
 
@@ -22,17 +23,21 @@ import torch
 from ..device import DeviceLike, resolve_device
 from .attention import attn_apply
 from .config import ModelConfig
-from .layers import embed, glu, rms_norm, truncated_normal_
+from .layers import (Param, dense_spec, embed, glu, glu_spec, rms_norm,
+                     truncated_normal_)
+from .mamba import init_mamba_block, mamba_apply
+from .moe import init_moe, moe_apply
+from .rwkv6 import channel_mix, init_rwkv_block, time_mix
+
+KINDS = ("g", "l", "m", "r")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what this port does not cover."""
-    kinds = sorted(set(cfg.layer_pattern) - {"g", "l"})
+    kinds = sorted(set(cfg.layer_pattern) - set(KINDS))
     if kinds:
         raise NotImplementedError(f"{cfg.name}: layer kinds {kinds} are not "
                                   "ported yet")
-    if cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: MoE is not ported yet")
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder is not "
                                   "ported yet")
@@ -41,64 +46,92 @@ def check_supported(cfg: ModelConfig) -> None:
                                   "is not ported yet")
 
 
+def _moe_static(cfg: ModelConfig, i: int) -> bool:
+    """MoE-ness of sub-layer i must not depend on the block index."""
+    if not cfg.is_moe:
+        return False
+    if cfg.block_period % cfg.moe_every and cfg.moe_every != 1:
+        raise ValueError(f"{cfg.name}: moe_every must divide the block period")
+    return i % cfg.moe_every == cfg.moe_offset
+
+
 # ---------------------------------------------------------------- init
+
+def _block_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """One block's tree (``repro.models.transformer.init_block``)."""
+    d, hd = cfg.d_model, cfg.head_dim
+
+    def norm():
+        return Param((d,), value=0.0 if cfg.zero_centered_norm else 1.0)
+
+    subs: Dict[str, Any] = {}
+    for i, kind in enumerate(cfg.layer_pattern):
+        sub: Dict[str, Any] = {"ln1": norm()}
+        if kind in ("g", "l"):
+            sub["attn"] = {
+                "wq": dense_spec(d, cfg.n_heads * hd, bias=cfg.qkv_bias),
+                "wk": dense_spec(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias),
+                "wv": dense_spec(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias),
+                "wo": dense_spec(cfg.n_heads * hd, d,
+                                 stddev=(cfg.n_heads * hd) ** -0.5),
+            }
+        elif kind == "m":
+            sub["mamba"] = init_mamba_block(cfg)
+        else:
+            sub["rwkv"] = init_rwkv_block(cfg)
+        sub["ln2"] = norm()
+        if kind != "r":
+            sub["ffn"] = (init_moe(cfg) if _moe_static(cfg, i)
+                          else glu_spec(d, cfg.d_ff))
+        if cfg.post_norms:
+            sub["post_ln1"] = norm()
+            sub["post_ln2"] = norm()
+        subs[f"sub{i}"] = sub
+    return subs
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree of ``repro.models.transformer.init_params`` as
+    :class:`Param` specs (block leaves without their leading n_blocks axis)."""
+    check_supported(cfg)
+    d = cfg.d_model
+    spec: Dict[str, Any] = {
+        "embed": {"table": Param((cfg.padded_vocab, d), 1.0, compute=True)},
+        "final_norm": Param((d,), value=0.0 if cfg.zero_centered_norm
+                            else 1.0),
+        "blocks": _block_spec(cfg),
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = dense_spec(d, cfg.padded_vocab)
+    return spec
+
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
                 device: DeviceLike = None,
                 dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
-    """Random parameters with the reference's distributions
-    (truncated normal, stddev ``d_in ** -0.5``; embeddings stddev 1; zero
-    biases; unit or zero-centred norms). Matrices in ``dtype``, norms and
-    biases in fp32. ``generator`` must live on ``device``."""
-    check_supported(cfg)
+    """Random parameters with the reference's tree and distributions
+    (truncated normals of the reference's scales, its constants), each leaf
+    stored as its ``Param.dtype`` says with ``dtype`` as the compute dtype.
+    ``generator`` must live on ``device``."""
+    spec = param_specs(cfg)
     device = resolve_device(device)
-    d, hd, nb = cfg.d_model, cfg.head_dim, cfg.n_blocks
-    f32 = dict(dtype=torch.float32, device=device)
 
-    def mat(shape, stddev):
-        t = torch.empty(shape, dtype=dtype, device=device)
-        for part in (t if t.dim() == 3 else [t]):   # per block: bounded temp
-            truncated_normal_(part, stddev, generator)
+    def make(p: Any, path: Tuple[str, ...]) -> Any:
+        if isinstance(p, dict):
+            return {k: make(v, path + (k,)) for k, v in p.items()}
+        stacked = path[0] == "blocks"
+        shape = ((cfg.n_blocks,) if stacked else ()) + p.shape
+        t = torch.empty(shape, dtype=p.dtype(dtype), device=device)
+        if p.stddev > 0:
+            for part in (t if stacked else [t]):   # per block: bounded temp
+                truncated_normal_(part, p.stddev, generator)
+        elif p.fill is not None:
+            t.copy_(p.fill())
+        else:
+            t.fill_(p.value)
         return t
 
-    def dense_p(d_in, d_out, bias=False, stddev=None):
-        p = {"w": mat((nb, d_in, d_out),
-                      stddev if stddev is not None else d_in ** -0.5)}
-        if bias:
-            p["b"] = torch.zeros((nb, d_out), **f32)
-        return p
-
-    def norm(*shape):
-        return (torch.zeros if cfg.zero_centered_norm else torch.ones)(
-            shape, **f32)
-
-    blocks: Dict[str, Any] = {}
-    for i, _kind in enumerate(cfg.layer_pattern):
-        sub: Dict[str, Any] = {
-            "ln1": norm(nb, d),
-            "attn": {
-                "wq": dense_p(d, cfg.n_heads * hd, cfg.qkv_bias),
-                "wk": dense_p(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-                "wv": dense_p(d, cfg.n_kv_heads * hd, cfg.qkv_bias),
-                "wo": dense_p(cfg.n_heads * hd, d,
-                              stddev=(cfg.n_heads * hd) ** -0.5),
-            },
-            "ln2": norm(nb, d),
-            "ffn": {"wi": dense_p(d, cfg.d_ff), "wg": dense_p(d, cfg.d_ff),
-                    "wo": dense_p(cfg.d_ff, d, stddev=cfg.d_ff ** -0.5)},
-        }
-        if cfg.post_norms:
-            sub["post_ln1"] = norm(nb, d)
-            sub["post_ln2"] = norm(nb, d)
-        blocks[f"sub{i}"] = sub
-    params: Dict[str, Any] = {
-        "embed": {"table": mat((cfg.padded_vocab, d), 1.0)},
-        "final_norm": norm(d),
-        "blocks": blocks,
-    }
-    if not cfg.tie_embeddings:
-        params["lm_head"] = {"w": mat((d, cfg.padded_vocab), d ** -0.5)}
-    return params
+    return make(spec, ())
 
 
 # ---------------------------------------------------------------- cache
@@ -106,21 +139,52 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                dtype: torch.dtype = torch.bfloat16,
                device: DeviceLike = None) -> Dict[str, Any]:
-    """Stacked decode cache: {"sub{i}": {"k", "v"}} of
-    [n_blocks, batch, max_len, n_kv_heads, head_dim]."""
+    """Stacked decode cache, one entry per sub-layer, each leaf
+    [n_blocks, batch, ...]: attention "k"/"v" [max_len, n_kv_heads,
+    head_dim] in ``dtype``; Mamba "conv" [d_conv-1, d_inner] and "ssm"
+    [d_inner, d_state], RWKV "shift_tm"/"shift_cm" [1, d_model] and "wkv"
+    [heads, head_size, head_size], all fp32 whatever ``dtype`` is."""
     check_supported(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_blocks, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {f"sub{i}": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                        "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for i in range(cfg.block_period)}
+
+    def zeros(*shape, dt=torch.float32):
+        return torch.zeros((cfg.n_blocks, batch) + shape, dtype=dt,
+                           device=device)
+
+    cache: Dict[str, Any] = {}
+    for i, kind in enumerate(cfg.layer_pattern):
+        if kind in ("g", "l"):
+            kv = (max_len, cfg.n_kv_heads, cfg.head_dim)
+            cache[f"sub{i}"] = {"k": zeros(*kv, dt=dtype),
+                                "v": zeros(*kv, dt=dtype)}
+        elif kind == "m":
+            di = cfg.mamba_d_inner
+            cache[f"sub{i}"] = {"conv": zeros(cfg.mamba_d_conv - 1, di),
+                                "ssm": zeros(di, cfg.mamba_d_state)}
+        else:
+            hs = cfg.rwkv_head_size
+            cache[f"sub{i}"] = {"shift_tm": zeros(1, cfg.d_model),
+                                "shift_cm": zeros(1, cfg.d_model),
+                                "wkv": zeros(cfg.d_model // hs, hs, hs)}
+    return cache
 
 
 def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
     """Logical axes for the cache tree (same structure as init_cache)."""
-    axes = ("layers", "batch", "cache_seq", "kv_heads", None)
-    return {f"sub{i}": {"k": axes, "v": axes}
-            for i in range(cfg.block_period)}
+    axes: Dict[str, Any] = {}
+    for i, kind in enumerate(cfg.layer_pattern):
+        if kind in ("g", "l"):
+            kv = ("layers", "batch", "cache_seq", "kv_heads", None)
+            axes[f"sub{i}"] = {"k": kv, "v": kv}
+        elif kind == "m":
+            axes[f"sub{i}"] = {"conv": ("layers", "batch", None, "inner"),
+                               "ssm": ("layers", "batch", "inner", None)}
+        else:
+            axes[f"sub{i}"] = {
+                "shift_tm": ("layers", "batch", None, None),
+                "shift_cm": ("layers", "batch", None, None),
+                "wkv": ("layers", "batch", "heads", None, None)}
+    return axes
 
 
 # ---------------------------------------------------------------- forward
@@ -137,7 +201,8 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
             lengths: Optional[torch.Tensor] = None,
             impl: Optional[str] = None,
             compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Any]:
-    """Run the decoder stack. Returns (hidden [B,S,D], the cache|None)."""
+    """Run the decoder stack. Returns (hidden [B,S,D], the cache|None);
+    the cache's tensors are updated in place."""
     check_supported(cfg)
     x = embed(tokens, params["embed"], scale_by_dim=cfg.embed_scale,
               compute_dtype=compute_dtype)
@@ -146,23 +211,51 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
         positions = (torch.arange(S, device=x.device)
                      if lengths is None or S > 1 else (lengths - 1)[:, None])
     zc, eps = cfg.zero_centered_norm, cfg.norm_eps
+    kw = dict(impl=impl, compute_dtype=compute_dtype)
     for blk in range(cfg.n_blocks):
         for i, kind in enumerate(cfg.layer_pattern):
             sub = _block(params["blocks"][f"sub{i}"], blk)
-            c = (None if cache is None else
-                 {"k": cache[f"sub{i}"]["k"][blk],
-                  "v": cache[f"sub{i}"]["v"][blk]})
+            c = None if cache is None else _block(cache[f"sub{i}"], blk)
             h = rms_norm(x, sub["ln1"], eps, zc)
-            out, _ = attn_apply(sub["attn"], h, cfg=cfg, kind=kind,
-                                positions=positions, cache=c,
-                                lengths=lengths, impl=impl,
-                                compute_dtype=compute_dtype)
-            if cfg.post_norms:
-                out = rms_norm(out, sub["post_ln1"], eps, zc)
-            x = x + out
+            if kind in ("g", "l"):
+                out, _ = attn_apply(sub["attn"], h, cfg=cfg, kind=kind,
+                                    positions=positions, cache=c,
+                                    lengths=lengths, **kw)
+                if cfg.post_norms:
+                    out = rms_norm(out, sub["post_ln1"], eps, zc)
+                x = x + out
+            elif kind == "m":
+                out, conv, ssm = mamba_apply(
+                    sub["mamba"], h, cfg,
+                    conv_state=None if c is None else c["conv"],
+                    ssm_state=None if c is None else c["ssm"], **kw)
+                x = x + out
+                if c is not None:
+                    c["conv"].copy_(conv)
+                    c["ssm"].copy_(ssm)
+            else:
+                out, shift_tm, wkv = time_mix(
+                    sub["rwkv"], h, cfg,
+                    shift_state=None if c is None else c["shift_tm"],
+                    wkv_state=None if c is None else c["wkv"], **kw)
+                x = x + out
+                h = rms_norm(x, sub["ln2"], eps, zc)
+                out, shift_cm = channel_mix(
+                    sub["rwkv"], h, cfg,
+                    shift_state=None if c is None else c["shift_cm"],
+                    compute_dtype=compute_dtype)
+                x = x + out
+                if c is not None:
+                    c["shift_tm"].copy_(shift_tm)
+                    c["shift_cm"].copy_(shift_cm)
+                    c["wkv"].copy_(wkv)
+                continue
             h = rms_norm(x, sub["ln2"], eps, zc)
-            out = glu(h, sub["ffn"], cfg.act, compute_dtype)
-            if cfg.post_norms:
+            if _moe_static(cfg, i):
+                out = moe_apply(sub["ffn"], h, cfg, compute_dtype)
+            else:
+                out = glu(h, sub["ffn"], cfg.act, compute_dtype)
+            if cfg.post_norms and kind in ("g", "l"):
                 out = rms_norm(out, sub["post_ln2"], eps, zc)
             x = x + out
     x = rms_norm(x, params["final_norm"], eps, zc)

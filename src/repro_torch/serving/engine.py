@@ -1,16 +1,18 @@
 """Serving engine: fused batched admission + joint decode over fixed slots
 (twin of ``repro.serving.engine``).
 
-``GenerationEngine`` owns a slot KV cache preallocated once on the device:
+``GenerationEngine`` owns a slot cache preallocated once on the device (KV
+for attention layers, fp32 states for recurrent ones):
 
 - **fused admission** — all free slots are filled with ONE prefill per
   prompt-length bucket: prompts are right-padded to the bucket length,
-  prefilled as a batch, and the resulting rows are written *in place* into
-  the slot cache with ``index_copy_`` at the slot indices (never a copy of
-  the whole cache). Right-padding is exact for attention layers: the decode
-  kernel masks by ``lengths``, and pad positions are never attended and are
-  progressively overwritten. Recurrent patterns ("m"/"r") would fold pad
-  tokens into their state, so those bucket by exact length.
+  prefilled as a batch, and every leaf of the resulting rows (K/V, and the
+  Mamba/RWKV states) is written *in place* into the slot cache with
+  ``index_copy_`` at the slot indices (never a copy of the whole cache).
+  Right-padding is exact for attention layers: the decode kernel masks by
+  ``lengths``, and pad positions are never attended and are progressively
+  overwritten. Recurrent patterns ("m"/"r") would fold pad tokens into
+  their state, so those bucket by exact length.
 - **fused decode** — one step over all slots that advances every active
   slot and computes done-flags on the device, so the host syncs ONCE per
   step instead of once per slot.

@@ -41,6 +41,13 @@ def test_port_files_exist():
     assert "src/repro_torch/serving/engine.py" in names
     assert "src/repro_torch/kernels/flash_attention/kernel.py" in names
     assert "src/repro_torch/kernels/flash_decode/kernel.py" in names
+    for kernel in ("rwkv6_scan", "mamba_scan"):
+        for module in ("ref", "ops", "kernel"):
+            assert f"src/repro_torch/kernels/{kernel}/{module}.py" in names
+        assert (REPO / "src" / "repro_torch" / "kernels" / kernel / "csrc"
+                / f"{kernel}.cu").is_file()
+    for module in ("rwkv6", "mamba", "moe"):
+        assert f"src/repro_torch/models/{module}.py" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -55,6 +62,10 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.serving, repro_torch.models.convert\n"
             "import repro_torch.kernels.flash_attention.kernel\n"
             "import repro_torch.kernels.flash_decode.ops\n"
+            "import repro_torch.kernels.rwkv6_scan.kernel\n"
+            "import repro_torch.kernels.mamba_scan.kernel\n"
+            "import repro_torch.models.rwkv6, repro_torch.models.mamba\n"
+            "import repro_torch.models.moe\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")

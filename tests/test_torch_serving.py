@@ -19,7 +19,7 @@ from repro.serving import Request as JRequest
 from repro.serving import generate as j_generate
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import convert
-from repro_torch.models import decode_step, init_cache, prefill
+from repro_torch.models import decode_step, init_cache, init_params, prefill
 from repro_torch.serving import (ContinuousBatcher, GenerationEngine,
                                  Request, SlotScheduler, generate)
 
@@ -139,6 +139,52 @@ def test_ragged_batch_tokens_identical_to_jax_engine(model):
     # fused admission: buckets {8, 16} -> 2 calls, zero full-cache copies,
     # one host sync per admit call / decode step
     assert eng.admit_calls == 2
+    assert eng.full_cache_copies == 0
+    assert eng.host_syncs == eng.admit_calls + eng.steps
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-v0.1-52b"])
+def test_recurrent_pattern_exact_length_buckets(arch):
+    """Recurrent layers fold pad tokens into their state, so the engine
+    buckets them by exact prompt length (twin of
+    tests/test_serving.py::test_recurrent_pattern_exact_length_buckets).
+    ``index_copy_`` admission carries every state leaf (shift_tm, shift_cm,
+    wkv; conv, ssm) into its slot, as the JAX engine's scatter does, and
+    greedy tokens are identical to the JAX engine's at fp32."""
+    kw = {"n_layers": 8} if arch.startswith("jamba") else {"n_layers": 2}
+    jcfg = j_reduced(j_get_config(arch), **kw)
+    cfg = reduced(get_config(arch), **kw)
+    # the port's seeded weights, handed to the JAX engine as they are (the
+    # trees match: test_torch_models); JAX's own init of jamba takes seconds
+    params = init_params(cfg, generator=torch.Generator().manual_seed(1),
+                         device=CPU, dtype=F32)
+    jparams = jax.tree.map(lambda t: jnp.asarray(t.numpy()), params)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (5, 9, 5)]
+    eng = _engine(cfg, params, slots=3)
+    assert eng._exact_buckets
+    jeng = JEngine(jcfg, jparams, slots=3, max_len=MAX_LEN,
+                   compute_dtype=jnp.float32)
+    reqs = [Request(i, p, max_new_tokens=4) for i, p in enumerate(prompts)]
+    jreqs = [JRequest(i, p, max_new_tokens=4) for i, p in enumerate(prompts)]
+    eng.admit_many(reqs)
+    jeng.admit_many(jreqs)
+    assert eng.admit_calls == 2       # lengths {5, 5} and {9}
+    states = [(sub, leaf) for sub, c in jeng.cache.items() for leaf in c
+              if leaf not in ("k", "v")]
+    assert states
+    for sub, leaf in states:
+        np.testing.assert_allclose(eng.cache[sub][leaf].numpy(),
+                                   np.asarray(jeng.cache[sub][leaf]),
+                                   atol=1e-4, rtol=1e-4, err_msg=leaf)
+    while eng.active_slots():
+        eng.step()
+    while jeng.active_slots():
+        jeng.step()
+    assert [r.tokens for r in reqs] == [r.tokens for r in jreqs]
+    for r, p in zip(reqs, prompts):
+        assert r.tokens == _ref_generate(cfg, params, p, 4)
     assert eng.full_cache_copies == 0
     assert eng.host_syncs == eng.admit_calls + eng.steps
 
