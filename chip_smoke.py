@@ -8,14 +8,20 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
 (any failure raises and the script exits non-zero):
 
 1. card: the card's name and power limit from ``nvidia-smi``;
-2. build: the four hand-written kernels from
+2. build: the five hand-written kernels from
    ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` per source, started
    together;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving shapes (attention at qwen2-7b's H 28, KV 4, D 128; the RWKV6
    scan at rwkv6-7b's H 64, D 64; the Mamba scan at jamba's d_inner 8192,
    d_state 16), with its time, the plain version's, one PyTorch library
-   call's where one computes the same function, and its bound;
+   call's where one computes the same function, and its bound. The grouped
+   GEMM, which no model calls, is driven on its own path: a dropless MoE
+   feed-forward through the op at the expert widths of olmoe-1b-7b,
+   qwen3-moe-30b-a3b and jamba-v0.1-52b, with group sizes from the port's
+   router on 1,202 tokens, held against the dense fp32 oracle; then each
+   product against the plain version, a skewed case with empty groups, and
+   olmoe's capacity buffer against ``_moe_local``'s own einsum;
 4. parity: the same seeded bf16 weights through the kernels and through
    the plain versions, prefill of 2 ragged prompts plus 4 decode steps,
    logits compared: qwen2-7b and rwkv6-7b at full width with 2 layers,
@@ -57,10 +63,13 @@ from repro_torch.kernels._build import build_all
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ops import decode_mha, mha
 from repro_torch.kernels.flash_decode import kernel as fd_kernel
+from repro_torch.kernels.grouped_gemm import kernel as gg_kernel
+from repro_torch.kernels.grouped_gemm.ops import grouped_gemm
 from repro_torch.kernels.mamba_scan import kernel as ms_kernel
 from repro_torch.kernels.mamba_scan.ops import mamba_scan
 from repro_torch.kernels.rwkv6_scan import kernel as rs_kernel
 from repro_torch.kernels.rwkv6_scan.ops import rwkv6_scan
+from repro_torch.models import moe as moe_mod
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
@@ -276,6 +285,219 @@ def mamba_phase(gen):
             "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by}
 
 
+def check_close(name, got, want, atol, rtol):
+    """Every element within atol + rtol * |want| (as ``np.allclose``);
+    returns the max abs error."""
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    excess = float((diff - rtol * want.float().abs()).max())
+    print(f"check {name}: max_abs_err={err!r} atol={atol!r} rtol={rtol!r}")
+    if not excess <= atol:
+        raise AssertionError(f"{name}: error exceeds {atol} + {rtol}|want| "
+                             f"by {excess - atol}")
+    return err
+
+
+MOE_CONFIGS = ("olmoe-1b-7b", "qwen3-moe-30b-a3b", "jamba-v0.1-52b")
+T_TOK = 2 * 601              # tokens: 2 prompts of 601, as in the scan phases
+GG_TOL = {torch.bfloat16: 3e-2, torch.float32: 1e-4}
+
+
+def moe_case(cfg, gen):
+    """Seeded full-width bf16 hidden states [T_TOK, D] and experts, routed
+    by the port's own router (``moe._route``): the rows in its stable
+    expert order with nothing dropped, and the group sizes."""
+    D, Fe, E = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    dev = "cuda"
+    x = torch.randn((T_TOK, D), generator=gen, device=dev).bfloat16()
+    p = {"router": torch.randn((D, E), generator=gen, device=dev) * D ** -0.5}
+    for name, (a, b) in (("w1", (D, Fe)), ("wg", (D, Fe)), ("w2", (Fe, D))):
+        p[name] = (torch.randn((E, a, b), generator=gen, device=dev)
+                   * a ** -0.5).bfloat16()
+    e_s, t_s, g_s, _, _ = moe_mod._route(x, p["router"], cfg)
+    sizes = torch.bincount(e_s, minlength=E).to(torch.int32)
+    return x, p, t_s, g_s, sizes
+
+
+def dropless_experts(x, p, t_s, g_s, sizes, gemm):
+    """The MoE feed-forward with every routed row kept: the experts' GLU
+    as three grouped GEMMs over the sorted rows (silu and the bf16
+    roundings as in ``moe._moe_local``), combined with the gates in fp32.
+    Returns (out [T, D] fp32, the w2 product's input)."""
+    xs = x[t_s]
+    h = gemm(xs, sizes, p["w1"])
+    g = gemm(xs, sizes, p["wg"])
+    a = F.silu(g.float()).to(x.dtype) * h
+    y = gemm(a, sizes, p["w2"])
+    out = torch.zeros((x.shape[0], x.shape[1]), device=x.device)
+    out.index_add_(0, t_s, y.float() * g_s[:, None])
+    return out, a
+
+
+def library_grouped_mm(x, sizes, W):
+    """One PyTorch call for the same product, timed as a yardstick only:
+    ``torch._grouped_mm`` with int32 cumulative offsets; where this torch
+    lacks it or refuses the layout, a per-expert ``torch.mm`` loop
+    (offsets taken on the host first). Returns (fn, what it is)."""
+    offs = sizes.cumsum(0).to(torch.int32)
+    try:
+        torch._grouped_mm(x, W, offs=offs)
+        torch.cuda.synchronize()
+        return (lambda: torch._grouped_mm(x, W, offs=offs),
+                "torch._grouped_mm (row-major W)")
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        why = str(e).splitlines()[0][:160]
+    ends = [0] + offs.tolist()
+    out = torch.empty((x.shape[0], W.shape[2]), dtype=x.dtype, device=x.device)
+
+    def loop():
+        for e in range(W.shape[0]):
+            if ends[e + 1] > ends[e]:
+                torch.mm(x[ends[e]:ends[e + 1]], W[e],
+                         out=out[ends[e]:ends[e + 1]])
+        return out
+    return loop, f"per-expert torch.mm loop (torch._grouped_mm: {why})"
+
+
+def product_row(label, x, sizes, W):
+    """One grouped product: kernel vs plain version, their times, the
+    library call's and the bound (x, the W of non-empty experts and out
+    moved once; 2 rows D F FLOP)."""
+    tol = GG_TOL[x.dtype]
+    got = grouped_gemm(x, sizes, W, impl="cuda")
+    want = grouped_gemm(x, sizes, W, impl="torch")
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    err = check_close(f"grouped_gemm {label}", got, want, tol, tol)
+    ms = time_ms(lambda: grouped_gemm(x, sizes, W, impl="cuda"))
+    plain_ms = time_ms(lambda: grouped_gemm(x, sizes, W, impl="torch"),
+                       iters=5)
+    lib_fn, lib_what = library_grouped_mm(x, sizes, W)
+    lib_err = max_err(lib_fn()[:int(sizes.sum())], want[:int(sizes.sum())])
+    library_ms = time_ms(lib_fn)
+    rows, D = x.shape
+    E, _, Fo = W.shape
+    esize = x.element_size()
+    live = int((sizes > 0).sum())
+    nbytes = esize * (rows * D + live * D * Fo + rows * Fo)
+    flops = 2 * int(sizes.sum()) * D * Fo
+    b_ms, b_by = bound(nbytes, flops, str(x.dtype).split(".")[-1])
+    row = {"product": label, "rows": rows, "D": D, "F": Fo, "E": E,
+           "live_experts": live, "max_abs_err": err, "tolerance": tol,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": lib_what, "library_max_abs_err": lib_err,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+           "flops": flops}
+    print("grouped_gemm_product " + json.dumps(row))
+    return row
+
+
+def grouped_gemm_phase(gen, kernels):
+    """The grouped GEMM op at the expert widths of the registry's three
+    MoE models, with group sizes from the port's router on T_TOK tokens.
+
+    Its path: a dropless MoE feed-forward through the op at each width
+    (launch counts set to 0 before, read after), held against the dense
+    fp32 oracle ``moe.moe_ref``. Then, for each width, the w1 (D -> F)
+    and w2 (F -> D) products against the plain version with times, one
+    skewed case (the reference test's [40, 0, 26, 30] scaled to the rows,
+    every other expert empty) and, at olmoe, an fp32 product and the
+    capacity buffer of ``moe._moe_local`` against its own einsum. Returns
+    (the kernels-line row summed over the router-derived products, the
+    path's launch counts)."""
+    cases = {}
+    for name in MOE_CONFIGS:
+        cases[name] = moe_case(get_config(name), gen)
+    torch.cuda.synchronize()
+
+    for k in kernels:
+        k.launches = 0
+    outs = {name: dropless_experts(*cases[name], gemm=grouped_gemm)
+            for name in MOE_CONFIGS}
+    torch.cuda.synchronize()
+    path_launches = {k.name: k.launches for k in kernels}
+    want = {k.name: 3 * len(MOE_CONFIGS) if k is gg_kernel.KERNEL else 0
+            for k in kernels}
+    assert path_launches == want, (path_launches, want)
+
+    products = []
+    for name in MOE_CONFIGS:
+        cfg = get_config(name)
+        x, p, t_s, g_s, sizes = cases[name]
+        out, a = outs[name]
+        ref = moe_mod.moe_ref(p, x.float()[None], cfg)[0]
+        assert out.shape == ref.shape and torch.isfinite(out).all()
+        # five bf16 roundings (h, g, silu(g), a, y) of ~2^-9 each against
+        # the fp32 oracle, on outputs of std ~0.1: 2% of the output's
+        # largest magnitude covers them
+        scale = float(ref.abs().max())
+        check_close(f"dropless MoE {name} vs moe_ref (fp32 oracle)", out,
+                    ref, 0.02 * scale, 0.0)
+        del ref
+        xs = x[t_s]
+        products.append(product_row(f"{name} w1 router", xs, sizes, p["w1"]))
+        products.append(product_row(f"{name} w2 router", a, sizes, p["w2"]))
+        E, rows = cfg.n_experts, xs.shape[0]
+        pat = np.array([40, 0, 26, 30])
+        skew = np.zeros(E, np.int64)
+        skew[:4] = pat * rows // pat.sum()
+        skew[0] += rows - skew.sum()
+        product_row(f"{name} w1 skewed {skew[:4].tolist()} + {E - 4} empty",
+                    xs, torch.from_numpy(skew).cuda(), p["w1"])
+        if name == "olmoe-1b-7b":
+            # fp32 sums of 2048 products in another order than cuBLAS's:
+            # ~sqrt(2048 / 32) times the reference's 1e-5 at D 32
+            product_row(f"{name} w1 router fp32", xs.float(), sizes,
+                        p["w1"].float())
+            capacity_check(cfg, x, p)
+        del cases[name], outs[name]
+        free_card()
+
+    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    total = {k: sum(r[k] for r in products) for k in keys}
+    b_bytes = sum(r["bytes"] for r in products) / HBM_BYTES_PER_S * 1e3
+    b_ops = sum(r["flops"] for r in products) / PEAK_FLOPS["bfloat16"] * 1e3
+    return dict(total, name="grouped_gemm", route="cuda",
+                source="src/repro_torch/kernels/grouped_gemm/csrc/grouped_gemm.cu",
+                replaces="src/repro/kernels/grouped_gemm/kernel.py:29",
+                shape="sum of the w1 and w2 products of olmoe-1b-7b, "
+                      "qwen3-moe-30b-a3b and jamba-v0.1-52b, router sizes, "
+                      f"{T_TOK} tokens, bf16",
+                max_abs_err=max(r["max_abs_err"] for r in products),
+                tolerance=GG_TOL[torch.bfloat16],
+                bound_by="bytes" if b_bytes >= b_ops else "operations",
+                library=sorted({r["library"] for r in products})), path_launches
+
+
+def capacity_check(cfg, x, p):
+    """At ``cfg``'s full width, the [E, C, D] dispatch buffer that
+    ``moe._moe_local`` builds, flattened, through the grouped GEMM with
+    every group of size C: that function's own w1 einsum, to bf16
+    tolerance."""
+    calls = []
+    real = torch.einsum
+
+    def spy(eq, *operands):
+        out = real(eq, *operands)
+        calls.append((eq, operands, out))
+        return out
+
+    torch.einsum = spy
+    try:
+        moe_mod._moe_local(x.reshape(2, T_TOK // 2, -1), p["router"], p["w1"],
+                           p["wg"], p["w2"], cfg)
+    finally:
+        torch.einsum = real
+    eq, (dispatch, w1), want = calls[0]
+    assert eq == "ecd,edf->ecf" and w1.shape == p["w1"].shape
+    E, C, D = dispatch.shape
+    sizes = torch.full((E,), C, dtype=torch.int32, device="cuda")
+    got = grouped_gemm(dispatch.reshape(E * C, D), sizes, w1, impl="cuda")
+    check_close(f"grouped_gemm vs _moe_local's einsum ecd,edf->ecf "
+                f"({cfg.name}, E {E}, C {C}, D {D})", got.reshape(E, C, -1),
+                want, 3e-2, 3e-2)
+
+
 def parity_phase(cfg, n_layers, tol, why, compute_dtype=torch.bfloat16):
     """Full width, ``n_layers`` layers: kernels vs plain versions on the
     same seeded bf16 weights and inputs, computing (and caching K/V) in
@@ -420,7 +642,7 @@ def expected_launches(cfg, counters):
     admits, steps = counters["admit_calls"], counters["steps"]
     return {"flash_attention": attn * admits, "flash_decode": attn * steps,
             "rwkv6_scan": layers["r"] * admits,
-            "mamba_scan": layers["m"] * admits}
+            "mamba_scan": layers["m"] * admits, "grouped_gemm": 0}
 
 
 def free_card():
@@ -489,7 +711,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}")
 
     kernels = [fa_kernel.KERNEL, fd_kernel.KERNEL, rs_kernel.KERNEL,
-               ms_kernel.KERNEL]
+               ms_kernel.KERNEL, gg_kernel.KERNEL]
     t0 = time.monotonic()
     build_all(kernels)
     print(f"build: {len(kernels)} kernels in {time.monotonic() - t0:.1f} s")
@@ -501,6 +723,9 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = [prefill_phase(gen), decode_phase(gen), rwkv6_phase(gen),
             mamba_phase(gen)]
+    free_card()
+    gg_row, gg_path = grouped_gemm_phase(gen, kernels)
+    rows.append(gg_row)
     for row in rows:
         print("kernel_check " + json.dumps(row))
     free_card()
@@ -523,7 +748,8 @@ def main() -> int:
                  compute_dtype=torch.float32)
     free_card()
 
-    by_path = {}
+    by_path = {"grouped_gemm op, dropless MoE experts at "
+               + ", ".join(MOE_CONFIGS): gg_path}
     by_path["qwen2-7b"] = serving_phase(qwen2, kernels,
                                         n_req=24, max_new=32, profile=True)
     free_card()

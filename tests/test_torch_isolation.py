@@ -41,7 +41,7 @@ def test_port_files_exist():
     assert "src/repro_torch/serving/engine.py" in names
     assert "src/repro_torch/kernels/flash_attention/kernel.py" in names
     assert "src/repro_torch/kernels/flash_decode/kernel.py" in names
-    for kernel in ("rwkv6_scan", "mamba_scan"):
+    for kernel in ("rwkv6_scan", "mamba_scan", "grouped_gemm"):
         for module in ("ref", "ops", "kernel"):
             assert f"src/repro_torch/kernels/{kernel}/{module}.py" in names
         assert (REPO / "src" / "repro_torch" / "kernels" / kernel / "csrc"
