@@ -12,7 +12,9 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    ``src/repro_torch/kernels/*/csrc``, one ``nvcc`` per source, started
    together;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the serving shapes (attention at qwen2-7b's H 28, KV 4, D 128; the RWKV6
+   the serving shapes (attention at qwen2-7b's H 28, KV 4, D 128, prefill
+   also at qwen2-7b's largest bucket, B 8, S 1023, and at gemma2-9b's heads,
+   D 256, window 4096, softcap 50; the RWKV6
    scan at rwkv6-7b's H 64, D 64; the Mamba scan at jamba's d_inner 8192,
    d_state 16), with its time, the plain version's, one PyTorch library
    call's where one computes the same function, and its bound. The grouped
@@ -29,8 +31,9 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    once more in fp32 (compute and cache);
 5. serving: each model behind ``ContinuousBatcher`` with 3 WRR tenants
    (weights 1, 1, 2) and seeded bf16 weights: qwen2-7b at full width and
-   depth (28 layers), then a ``torch.profiler`` trace of a few full-batch
-   decode steps; rwkv6-7b at full width and depth (32 layers);
+   depth (28 layers), then ``torch.profiler`` traces of a few full-batch
+   decode steps and of one admit call (4 prompts of 512); rwkv6-7b at
+   full width and depth (32 layers);
    jamba-v0.1-52b at full width with one period (8 layers: 7 Mamba, 1
    attention, 4 MoE of 16 experts; its 32 layers, ~104 GB in bf16, do not
    fit one 80 GB card). Each model is freed before the next loads. The
@@ -107,8 +110,63 @@ def check(name, err, tol):
         raise AssertionError(f"{name}: max abs error {err} > {tol}")
 
 
+def attn_pairs(S, T, causal, window):
+    """(q, k) pairs a prefill attends to, q_offset = T - S when causal."""
+    q = np.arange(S, dtype=np.int64) + (T - S if causal else 0)
+    hi = np.minimum(q + 1, T) if causal else np.full(S, T, np.int64)
+    lo = np.maximum(q - window + 1, 0) if window > 0 else np.zeros(S, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def attn_bound(B, S, T, H, KV, D, causal, window, esize=2):
+    """q and o once, k and v once; 4 D FLOP per attended (q, k) pair and
+    head (the two products)."""
+    nbytes = esize * (2 * B * S * H * D + 2 * B * T * KV * D)
+    flops = 4 * D * attn_pairs(S, T, causal, window) * B * H
+    return bound(nbytes, flops, "bfloat16")
+
+
+def prefill_shape(gen, label, B, S, H, KV, D, window, softcap, sdpa):
+    """bf16 causal prefill at a served shape, q, k, v drawn from ``gen``:
+    kernel vs plain version (tol 2e-2), its time, the plain version's,
+    SDPA's where ``sdpa`` names the call (else None: SDPA has no softcap),
+    and the bound. Printed as ``prefill_shape {...}``."""
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+               for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    out = mha(q, k, v, impl="cuda", **kw)
+    ref = mha(q, k, v, impl="torch", **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    err = max_err(out, ref)
+    check(f"flash_attention {label}", err, 2e-2)
+    del out, ref
+    ms = time_ms(lambda: mha(q, k, v, impl="cuda", **kw))
+    plain_ms = time_ms(lambda: mha(q, k, v, impl="torch", **kw), iters=3,
+                       warmup=1)
+    library_ms, library = None, sdpa
+    if sdpa is None:
+        library = "none: SDPA has no softcap"
+    else:
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True))
+    b_ms, b_by = attn_bound(B, S, S, H, KV, D, True, window)
+    flops = 4 * D * attn_pairs(S, S, True, window) * B * H
+    row = {"shape": label, "max_abs_err": err, "tolerance": 2e-2, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "library": library,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "tflops": flops / (ms * 1e-3) / 1e12}
+    print("prefill_shape " + json.dumps(row))
+    return row
+
+
 def prefill_phase(gen):
-    """Prefill kernel vs its plain version at B 4, S 512 (qwen2-7b heads)."""
+    """Prefill kernel vs its plain version at B 4, S 512 (qwen2-7b heads):
+    three checks and the timed row, drawn from ``gen``; then timed checks
+    at qwen2-7b's largest bucket (B 8, S 1023) and at gemma2-9b's heads (D
+    256, window 4096, softcap 50), drawn from a generator of their own so
+    that the later phases' inputs do not depend on them."""
     B, S, H, KV, D = 4, 512, 28, 4, 128
     dev = "cuda"
 
@@ -129,27 +187,25 @@ def prefill_phase(gen):
         errs[label] = max_err(out, ref)
         check(f"flash_attention {label}", errs[label], tol)
 
-    q, k, v = qkv(torch.bfloat16)
-    ms = time_ms(lambda: mha(q, k, v, impl="cuda"))
-    plain_ms = time_ms(lambda: mha(q, k, v, impl="torch"), iters=5)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    try:
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-    except TypeError:          # a PyTorch without enable_gqa
-        library_ms = None
-    pairs = S * (S + 1) // 2                     # causal (q, k) pairs per head
-    flops = 4 * D * pairs * B * H
-    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KV * D)
-    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    row = prefill_shape(gen, f"B{B} S{S} H{H} KV{KV} D{D} bf16 causal",
+                        B, S, H, KV, D, 0, 0.0,
+                        sdpa="SDPA, enable_gqa, is_causal")
+    served = torch.Generator(device=dev).manual_seed(SEED + 1)
+    shapes = [prefill_shape(served, "qwen2-7b bucket B8 S1023 H28 KV4 D128 "
+                            "bf16 causal", 8, 1023, 28, 4, 128, 0, 0.0,
+                            sdpa="SDPA, enable_gqa, is_causal"),
+              prefill_shape(served, "gemma2-9b heads B2 S1023 H16 KV8 D256 "
+                            "bf16 causal window 4096 softcap 50", 2, 1023,
+                            16, 8, 256, 4096, 50.0, sdpa=None)]
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
-            "shape": f"B{B} S{S} H{H} KV{KV} D{D} bf16 causal",
-            "max_abs_err": errs["bf16 causal"], "tolerance": 2e-2,
-            "errors": errs, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": b_ms, "bound_us": b_ms * 1e3,
-            "bound_by": b_by}
+            "shape": row["shape"], "max_abs_err": errs["bf16 causal"],
+            "tolerance": 2e-2, "errors": errs, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+            "bound_ms": row["bound_ms"], "bound_us": row["bound_ms"] * 1e3,
+            "bound_by": row["bound_by"], "tflops": row["tflops"],
+            "served_shapes": shapes}
 
 
 def decode_phase(gen):
@@ -626,6 +682,7 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile=False):
           f"step at 3.35 TB/s)")
     if profile:
         profile_decode(cfg, batcher, engine, rng)
+        profile_admit(cfg, engine, rng)
     engine.step = step          # break the engine <-> closure cycle
     return launches
 
@@ -653,7 +710,6 @@ def free_card():
 def profile_decode(cfg, batcher, engine, rng, n_steps=4):
     """Device busy share and kernel mix of full-batch decode steps, from a
     ``torch.profiler`` trace (run after the measured window)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(engine.slots):
         batcher.submit(rng.integers(0, cfg.vocab, 64), max_new_tokens=16)
@@ -669,12 +725,7 @@ def profile_decode(cfg, batcher, engine, rng, n_steps=4):
         wall_ms = (time.perf_counter() - t0) * 1e3
     assert engine.steps - steps0 == n_steps
     batcher.run_until_drained()
-    per_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms = e.time_range.elapsed_us() / 1e3
-            n, t = per_name.get(e.name, (0, 0.0))
-            per_name[e.name] = (n + 1, t + ms)
+    per_name = device_ms_by_name(prof)
     busy = sum(t for _, t in per_name.values())
     count = sum(n for n, _ in per_name.values())
     print(f"profile: {n_steps} decode steps ({engine.slots} active slots) "
@@ -686,12 +737,73 @@ def profile_decode(cfg, batcher, engine, rng, n_steps=4):
               f"launches/step  {name[:90]}")
 
 
+def device_ms_by_name(prof):
+    """{kernel name: (launches, device ms)} from a profiler's CUDA events."""
+    from torch.autograd import DeviceType
+    per_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms = e.time_range.elapsed_us() / 1e3
+            n, t = per_name.get(e.name, (0, 0.0))
+            per_name[e.name] = (n + 1, t + ms)
+    return per_name
+
+
+def profile_admit(cfg, engine, rng, n_req=4, length=512):
+    """Device time by kernel name over one admit call: ``n_req`` prompts of
+    ``length`` tokens (one bucket), one token each so no slot stays taken;
+    a first call of the same shape runs untraced. Prints the prefill
+    attention kernel's share of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def reqs(uid0):
+        return [S.Request(uid0 + i, rng.integers(0, cfg.vocab, length), 1)
+                for i in range(n_req)]
+
+    engine.admit_many(reqs(10_000))
+    torch.cuda.synchronize()
+    calls0 = engine.admit_calls
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        done = engine.admit_many(reqs(20_000))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    assert engine.admit_calls - calls0 == 1 and all(r.done for r in done)
+    per_name = device_ms_by_name(prof)
+    busy = sum(t for _, t in per_name.values())
+    assert busy > 0, "the profiler recorded no device time"
+    attn = {k: v for k, v in per_name.items() if "attn_fwd" in k}
+    attn_ms = sum(t for _, t in attn.values())
+    print(f"profile_admit: one admit call of {n_req} x {length} tokens "
+          f"({cfg.n_layers} layers) wall {wall_ms:.2f} ms, device busy "
+          f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
+          f"{sum(n for n, _ in per_name.values())} kernels; prefill "
+          f"attention {attn_ms:.3f} ms in {sum(n for n, _ in attn.values())} "
+          f"launches = {100 * attn_ms / busy:.1f}% of device time")
+    for name, (n, t) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:10]:
+        print(f"profile_admit:   {t:8.3f} ms {100 * t / busy:5.1f}%  {n:5d} "
+              f"launches  {name[:90]}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
     else:
         yield tree
+
+
+def ptxas_entries(log):
+    """[(entry function, its register and spill lines)] from the output of
+    ``nvcc -Xptxas -v``."""
+    entries = []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entries.append((line.split("'")[1], []))
+        elif entries and ("registers" in line or "spill" in line):
+            entries[-1][1].append(line.strip().replace("ptxas info    : ", ""))
+    return entries
 
 
 def main() -> int:
@@ -715,9 +827,11 @@ def main() -> int:
     t0 = time.monotonic()
     build_all(kernels)
     print(f"build: {len(kernels)} kernels in {time.monotonic() - t0:.1f} s")
-    for k in kernels:
+    for k in kernels:   # ptxas: each entry function's report, any warning
+        for name, report in ptxas_entries(k.build_log):
+            print(f"build {k.name}: {name}: {'; '.join(report)}")
         for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "arning" in line:
                 print(f"build {k.name}: {line.strip()}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)

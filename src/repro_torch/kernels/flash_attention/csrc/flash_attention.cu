@@ -4,64 +4,84 @@
 // (Pallas body `_attn_kernel`, :25): blocked online-softmax GQA attention,
 // causal with q_offset, sliding window `kpos > qpos - window`, tanh
 // softcap, ragged kv `kpos < T`, p multiplied by the mask explicitly so a
-// fully masked tile adds exactly zero, out = acc / (l + 1e-30).
+// fully masked tile adds exactly zero, p rounded to v's dtype before the PV
+// product, out = acc / (l + 1e-30).
 //
 // Bound on the H100: operations for long prompts, bytes for short ones.
 // A causal prefill does ~2*S*D FLOP per K/V element and reads q and writes
 // o once; at qwen2-7b's heads (H 28, KV 4, D 128) the operations bound
 // (989 TFLOP/s bf16) passes the bytes bound (3.35 TB/s) near S = 700; at
-// B 4, S 512 they are 7.6 us and 10.0 us.
+// B 4, S 512 they are 7.6 us and 10.0 us. Both products are matrix
+// products, so only the tensor cores can approach either bound.
 //
-// Design: one block per (q tile of 64 rows, head, batch row); a loop over
-// 32-row K/V tiles replaces the TPU's sequential 4th grid axis. Q, K, V and
-// P tiles are staged in fp32 dynamic shared memory (74 KB at D 128, 140 KB
-// at D 256; above the 48 KB static limit, so cudaFuncSetAttribute raises
-// the cap). The fp32 running max m, sum l and the D/4-wide slice of acc
-// live in registers: four threads own one q row. K/V tiles that the causal
-// or window mask covers completely are skipped, so a causal prefill reads
-// and multiplies about half of the T x S pairs. This first version uses the
-// CUDA cores in fp32 (no tensor cores), so it sits far from the bound; the
-// gap is recorded in PERF.md and closing it (mma/wgmma, TMA) is later work.
+// bf16 (attn_fwd_wgmma): both products on the tensor cores with `wgmma`.
+// One block per (head, batch row, q tile of 64 rows per consumer
+// warpgroup: two warpgroups, 128 rows, at D <= 128; one at D 256, where the
+// 64 x 256 fp32 accumulator alone is 128 registers a thread). Q, K and V
+// stay bf16 in shared memory, loaded by TMA through 4-D tensor maps over
+// [B, S or T, heads, D] (so the zero fill of a ragged tile stops at the
+// batch row's own S or T), 128-byte swizzled (64-byte at D 32, 32-byte at
+// D 16), a box row holding at most 64 bf16: D 128 and 256 tiles are two and
+// four boxes wide. One thread issues the loads into a 2-stage ring of K and
+// V tiles (64 kv rows at D 128, 32 at D 256, 128 below), each stage with an
+// mbarrier for K and one for V, so the next tile's copy runs under this
+// tile's products; the Q tile is loaded once. S = Q K^T is an SS wgmma
+// (both K-major); the softmax runs in fp32 on the accumulator fragments in
+// the reference's order (scale, softcap, mask, running max and sum, exp2
+// with log2(e) folded in), each step a branch-free pass over the
+// fragments; P is converted to bf16 in place and fed from registers as the
+// A operand of O += P V, with V [T, D] row-major as the transposed
+// (MN-major) B operand. The mask is computed only on tiles that straddle
+// the causal or window diagonal or the end of T; tiles masked for all of a
+// warpgroup's rows are skipped; the longest causal q tiles launch first.
+// O / l goes back through the warpgroup's Q tile and one TMA store per box
+// (the map clips rows past S). The tensor map encoder lives in libcuda;
+// the runtime's entry-point query returns it, so the library needs no
+// -lcuda.
+//
+// What bounds it on this card: a warpgroup runs Q K^T, the softmax and
+// P V one after another, so its tensor cores wait through its softmax;
+// the overlap comes from other warpgroups. The tile shapes are chosen so
+// that two blocks (four warpgroups) fit on an SM: 124 registers a thread
+// and 96 KB of shared memory at D 128. Measured on one H100 (PERF.md):
+// ~190 TFLOP/s at B 4, S 512 and ~310 at B 8, S 1023, against SDPA's ~240
+// and ~440; overlapping one tile's softmax with the next tile's Q K^T
+// inside a warpgroup, and a producer warp, are the next steps.
+//
+// fp32 (attn_fwd_kernel): the CUDA-core kernel of the first port, kept as
+// it was. The tensor cores would compute fp32 inputs in TF32 (about three
+// decimal digits), outside the fp32 tolerance of 2e-5. One block per q tile
+// of 64 rows over 32-row K/V tiles, Q, K, V and P staged in fp32 shared
+// memory, the running max m, sum l and a D/4-wide slice of acc in
+// registers (four threads own one q row); fully masked K/V tiles skipped.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
+
+constexpr float NEG_INF = -1e30f;
+
+// ------------------------------------------------- fp32: the CUDA cores
 
 constexpr int BQ = 64;            // q rows per block
 constexpr int BK = 32;            // kv rows per tile
 constexpr int NT = 4 * BQ;        // four threads per q row
-constexpr float NEG_INF = -1e30f;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// `rows` rows of D elements into fp32 shared memory (row stride ld); rows
-// at or past `valid` are zero-filled. 16-byte loads: D * sizeof(T) and the
-// row starts are multiples of 16 bytes (checked by the Python wrapper).
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src, long long stride,
+// `rows` rows of D floats into shared memory (row stride ld); rows at or
+// past `valid` are zero-filled. 16-byte loads: D * 4 and the row starts are
+// multiples of 16 bytes (checked by the Python wrapper).
+__device__ __forceinline__ void load_tile(float* dst, int ld, const float* src, long long stride,
                                           int valid, int rows, int D) {
-  constexpr int VEC = 16 / sizeof(T);
-  const int vpr = D / VEC;
+  const int vpr = D / 4;
   for (int i = threadIdx.x; i < rows * vpr; i += blockDim.x) {
-    const int r = i / vpr, c = (i - r * vpr) * VEC;
+    const int r = i / vpr, c = (i - r * vpr) * 4;
     float* o = dst + r * ld + c;
-    if (r < valid) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + r * stride + c);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) o[j] = to_f(e[j]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < VEC; ++j) o[j] = 0.f;
-    }
+    const float4 x = r < valid ? *reinterpret_cast<const float4*>(src + r * stride + c)
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+    o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
   }
 }
 
@@ -70,11 +90,11 @@ constexpr int smem_floats() {
   return BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, int S, int T_len, int H, int KV, float scale, int causal,
-                int window, float softcap, int q_offset) {
+attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o, int S, int T_len, int H, int KV,
+                float scale, int causal, int window, float softcap, int q_offset) {
   extern __shared__ float smem[];
   constexpr int LDQ = D + 1, LDK = D + 1, LDV = D, LDP = BK + 1;
   constexpr int NS = BK / 4, NA = D / 4;
@@ -88,11 +108,11 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int tid = threadIdx.x, r = tid >> 2, j4 = tid & 3;
   const int qpos = q_offset + q0 + r;
   const long long q_row = (long long)H * D, kv_row = (long long)KV * D;
-  const T* kb = k + (long long)b * T_len * kv_row + (long long)n * D;
-  const T* vb = v + (long long)b * T_len * kv_row + (long long)n * D;
+  const float* kb = k + (long long)b * T_len * kv_row + (long long)n * D;
+  const float* vb = v + (long long)b * T_len * kv_row + (long long)n * D;
 
-  load_tile<T>(Qs, LDQ, q + ((long long)b * S + q0) * q_row + (long long)h * D, q_row,
-               min(BQ, S - q0), BQ, D);
+  load_tile(Qs, LDQ, q + ((long long)b * S + q0) * q_row + (long long)h * D, q_row,
+            min(BQ, S - q0), BQ, D);
 
   // kv positions any row of this tile may see; tiles outside are skipped
   int lo = 0, hi = T_len;
@@ -107,8 +127,8 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   for (int k0 = (lo / BK) * BK; k0 < hi; k0 += BK) {
     const int kval = min(BK, T_len - k0);
     __syncthreads();
-    load_tile<T>(Ks, LDK, kb + k0 * kv_row, kv_row, kval, BK, D);
-    load_tile<T>(Vs, LDV, vb + k0 * kv_row, kv_row, kval, BK, D);
+    load_tile(Ks, LDK, kb + k0 * kv_row, kv_row, kval, BK, D);
+    load_tile(Vs, LDV, vb + k0 * kv_row, kv_row, kval, BK, D);
     __syncthreads();
 
     float s[NS];
@@ -144,7 +164,7 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
     for (int i = 0; i < NS; ++i) {
       const float p = ok[i] ? expf(s[i] - m_new) : 0.f;   // explicit mask on p
       sum += p;
-      Ps[r * LDP + j4 + 4 * i] = to_f(from_f<T>(p));      // p in v's dtype for PV
+      Ps[r * LDP + j4 + 4 * i] = p;
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -165,59 +185,566 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   }
 
   if (q0 + r < S) {
-    T* orow = o + ((long long)b * S + q0 + r) * q_row + (long long)h * D;
+    float* orow = o + ((long long)b * S + q0 + r) * q_row + (long long)h * D;
 #pragma unroll
-    for (int i = 0; i < NA; ++i) orow[j4 + 4 * i] = from_f<T>(acc[i] / (l + 1e-30f));
+    for (int i = 0; i < NA; ++i) orow[j4 + 4 * i] = acc[i] / (l + 1e-30f);
   }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
-                   int H, int KV, int causal, int window, float softcap, float scale,
-                   int q_offset, cudaStream_t stream) {
+template <int D>
+int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
+                int H, int KV, int causal, int window, float softcap, float scale, int q_offset,
+                cudaStream_t stream) {
   const int bytes = smem_floats<D>() * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<T, D>,
+  cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  attn_fwd_kernel<T, D><<<grid, NT, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), S, T_len, H, KV, scale, causal, window, softcap, q_offset);
-  return cudaGetLastError();
+  attn_fwd_kernel<D><<<grid, NT, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), S, T_len, H, KV, scale, causal, window, softcap, q_offset);
+  return (int)cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int B, int S,
-                       int T_len, int H, int KV, int D, int causal, int window, float softcap,
-                       float scale, int q_offset, cudaStream_t st) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, S, T_len, H, KV, causal, window, softcap, scale, q_offset, st);
-    case 32: return launch<T, 32>(q, k, v, o, B, S, T_len, H, KV, causal, window, softcap, scale, q_offset, st);
-    case 64: return launch<T, 64>(q, k, v, o, B, S, T_len, H, KV, causal, window, softcap, scale, q_offset, st);
-    case 128: return launch<T, 128>(q, k, v, o, B, S, T_len, H, KV, causal, window, softcap, scale, q_offset, st);
-    case 256: return launch<T, 256>(q, k, v, o, B, S, T_len, H, KV, causal, window, softcap, scale, q_offset, st);
-    default: return cudaErrorInvalidValue;
+// ------------------------------------ bf16: wgmma on the tensor cores, TMA
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Tile shape: two blocks fit an SM at D 128 and 256 (PERF.md).
+template <int D>
+struct Cfg {
+  static constexpr int NWG = D == 256 ? 1 : 2;         // consumer warpgroups, 64 q rows each
+  static constexpr int BQ = 64 * NWG;                  // q rows per block
+  static constexpr int BK =                            // kv rows per tile
+      D == 256 ? 32 : D == 128 ? 64 : 128;
+  static constexpr int ST = 2;                         // stages of the K/V ring
+  static constexpr int SW = D >= 64 ? 128 : 2 * D;     // swizzle span = bytes of one box row
+  static constexpr int EB = SW / 2;                    // bf16 in one box row
+  static constexpr int NB = D / EB;                    // boxes across D
+  static constexpr uint64_t LAYOUT = SW == 128 ? 1 : SW == 64 ? 2 : 3;   // wgmma descriptor
+  static constexpr int Q_BYTES = 64 * D * 2;           // one warpgroup's q tile
+  static constexpr int KV_BYTES = BK * D * 2;          // one K or V tile
+  static constexpr int SMEM = NWG * Q_BYTES + 2 * ST * KV_BYTES + 8 * (1 + 2 * ST) + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// one arrival that also sets the bytes the stage's TMA copies will bring
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t globaltimer_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// A TMA copy that never lands (say a box its map does not allow) leaves
+// its phase incomplete; after 30 s of wall time (%globaltimer, which keeps
+// time while the context is preempted), far beyond any legitimate wait,
+// the wait traps, so the launch fails with an error instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  uint64_t start = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done) {
+      const uint64_t now = globaltimer_ns();
+      if (start == 0) start = now;
+      else if (now - start > 30000000000ull) __trap();
+    }
   }
+}
+
+// box {c0 .. c0 + EB, c1, c2 .. c2 + rows, c3} of a 4-D map [B, L, heads, D]
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// the tile at smem `src` to box {c0 .. c0 + EB, c1, c2 .. c2 + rows, c3};
+// rows outside the map are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// shared-memory matrix descriptor: start, leading and stride byte offsets
+// (16-byte units), swizzle layout
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving an accumulator across an async wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D = A * B (+ D): SS form, m64nNk16, A and B K-major in shared memory
+// (overloaded on N / 2, the accumulator registers a thread holds)
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// RS form: A (bf16 pairs) from registers, B transposed (MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {   // 2^x on the SFU; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh(x) = 1 - 2 / (e^2x + 1) on the SFU: absolute error ~1e-7 (an fp32
+// ulp of 1), +-1 at the ends (rcp(inf) = 0)
+__device__ __forceinline__ float tanh_sfu(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(ex2(x * (2.f * LOG2E)) + 1.f));
+  return fmaf(-2.f, r, 1.f);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::NWG * 128, 1)
+attn_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+               int S, int T_len, int H, int KV, float scale, int causal, int window,
+               float softcap, int q_offset) {
+  using C = Cfg<D>;
+  constexpr int BK = C::BK, ST = C::ST, SW = C::SW, EB = C::EB;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;   // swizzle atoms need 1024 B
+  const uint32_t sK = sQ + C::NWG * C::Q_BYTES;
+  const uint32_t sV = sK + ST * C::KV_BYTES;
+  const uint32_t bar_q = sV + ST * C::KV_BYTES;               // then K full [ST], V full [ST]
+  auto bar_k = [&](int s) { return bar_q + 8u * (1 + s); };
+  auto bar_v = [&](int s) { return bar_q + 8u * (1 + ST + s); };
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * C::BQ;        // longest causal tiles first
+  const int n = h / (H / KV);
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid & 127) >> 5, lane = tid & 31;
+
+  // kv tiles any row of this block may see; tiles outside are never loaded
+  int lo = 0, hi = T_len;
+  if (causal) hi = min(hi, q_offset + min(q0 + C::BQ, S));
+  if (window > 0) lo = max(lo, q_offset + q0 - window + 1);
+  const int t0 = lo / BK;
+  const int n_tiles = hi > lo ? (hi + BK - 1) / BK - t0 : 0;
+
+  auto load_kv = [&](int it) {   // tile it into stage it % ST (one thread)
+    const int s = it % ST, k0 = (t0 + it) * BK;
+    mbar_expect_tx(bar_k(s), C::KV_BYTES);
+#pragma unroll
+    for (int j = 0; j < C::NB; ++j)
+      tma_load(sK + s * C::KV_BYTES + j * BK * SW, &tm_k, bar_k(s), j * EB, n, k0, b);
+    mbar_expect_tx(bar_v(s), C::KV_BYTES);
+#pragma unroll
+    for (int j = 0; j < C::NB; ++j)
+      tma_load(sV + s * C::KV_BYTES + j * BK * SW, &tm_v, bar_v(s), j * EB, n, k0, b);
+  };
+
+  if (tid == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(bar_k(s), 1);
+      mbar_init(bar_v(s), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && n_tiles > 0) {
+    mbar_expect_tx(bar_q, C::NWG * C::Q_BYTES);
+    for (int w = 0; w < C::NWG; ++w)
+      for (int j = 0; j < C::NB; ++j)
+        tma_load(sQ + w * C::Q_BYTES + j * 64 * SW, &tm_q, bar_q, j * EB, h, q0 + 64 * w, b);
+    for (int it = 0; it < min(ST, n_tiles); ++it) load_kv(it);
+  }
+  __syncwarp();
+
+  // this thread's accumulator rows: r0 and r0 + 8 of the warpgroup's 64
+  const int qw0 = q0 + 64 * wg;
+  const int r0 = 16 * warp + (lane >> 2), cq = 2 * (lane & 3);
+  const int qpos0 = q_offset + qw0 + r0, qpos1 = qpos0 + 8;
+  const int qa = q_offset + qw0, qb = q_offset + min(qw0 + 64, S) - 1;   // valid rows' positions
+  const uint32_t sQw = sQ + wg * C::Q_BYTES;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;   // l: this thread's partial sums
+
+  if (n_tiles > 0) mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % ST;
+    const uint32_t parity = (it / ST) & 1;
+    const int k0 = (t0 + it) * BK, k1 = k0 + BK - 1;
+    const bool dead = qw0 >= S || k0 >= T_len || (causal && k0 > qb) ||
+                      (window > 0 && k1 <= qa - window);
+    if (!dead) {
+      const bool need_mask =
+          k1 >= T_len || (causal && k1 > qa) || (window > 0 && k0 <= qb - window);
+      mbar_wait(bar_k(s), parity);
+      __syncwarp();
+
+      // S = Q K^T over D in steps of 16 (32 bytes inside a swizzled box row)
+      float sc[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+      fence_regs(sc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = ((kk * 16) % EB) * 2;
+        const uint64_t da = gmma_desc(sQw + (kk * 16 / EB) * 64 * SW + off, 16, 8 * SW, C::LAYOUT);
+        const uint64_t db = gmma_desc(sK + s * C::KV_BYTES + (kk * 16 / EB) * BK * SW + off, 16,
+                                      8 * SW, C::LAYOUT);
+        wgmma_ss(sc, da, db, kk > 0);
+      }
+      wgmma_commit();
+      fence_regs(sc);
+      wgmma_wait_all();
+      fence_regs(sc);
+
+      // softmax on the fragments: sc[j] is row r0 + 8 * ((j >> 1) & 1),
+      // column 8 * (j >> 2) + cq + (j & 1); fp32 throughout
+      auto valid = [&](int j) {
+        const int kpos = k0 + 8 * (j >> 2) + cq + (j & 1);
+        const int qpos = (j & 2) ? qpos1 : qpos0;
+        bool ok = kpos < T_len;
+        if (causal) ok = ok && kpos <= qpos;
+        if (window > 0) ok = ok && kpos > qpos - window;
+        return ok;
+      };
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+      // each step is its own branch-free pass; a uniform branch per tile
+      // picks the softcap and mask passes
+      if (softcap > 0.f) {
+#pragma unroll
+        for (int j = 0; j < BK / 2; ++j) sc[j] = tanh_sfu(sc[j] * scale / softcap) * softcap;
+      } else {
+#pragma unroll
+        for (int j = 0; j < BK / 2; ++j) sc[j] *= scale;
+      }
+      if (need_mask) {
+#pragma unroll
+        for (int j = 0; j < BK / 2; ++j)
+          if (!valid(j)) sc[j] = NEG_INF;
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 2; j += 4) {
+        mx0 = fmaxf(mx0, fmaxf(sc[j], sc[j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[j + 2], sc[j + 3]));
+      }
+#pragma unroll
+      for (int d = 1; d <= 2; d <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, d));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, d));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float corr0 = ex2((m0 - mn0) * LOG2E), corr1 = ex2((m1 - mn1) * LOG2E);
+      const float ms0 = mn0 * LOG2E, ms1 = mn1 * LOG2E;
+      m0 = mn0;
+      m1 = mn1;
+#pragma unroll
+      for (int j = 0; j < BK / 2; j += 4) {
+        sc[j] = ex2(fmaf(sc[j], LOG2E, -ms0));
+        sc[j + 1] = ex2(fmaf(sc[j + 1], LOG2E, -ms0));
+        sc[j + 2] = ex2(fmaf(sc[j + 2], LOG2E, -ms1));
+        sc[j + 3] = ex2(fmaf(sc[j + 3], LOG2E, -ms1));
+      }
+      if (need_mask) {   // explicit mask on p: a masked tile adds exactly 0
+#pragma unroll
+        for (int j = 0; j < BK / 2; ++j)
+          if (!valid(j)) sc[j] = 0.f;
+      }
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 2; j += 4) {
+        sum0 += sc[j] + sc[j + 1];
+        sum1 += sc[j + 2] + sc[j + 3];
+      }
+      l0 = l0 * corr0 + sum0;
+      l1 = l1 * corr1 + sum1;
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) acc[j] *= (j & 2) ? corr1 : corr0;
+      // P in bf16 as the A fragments of m64k16: the accumulator layout of
+      // columns 16 kk .. 16 kk + 15 is the A layout
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+
+      // O += P V over the tile's kv rows in steps of 16 (two 8-row swizzle
+      // atoms); V is MN-major: its D columns are the leading dimension
+      mbar_wait(bar_v(s), parity);
+      __syncwarp();
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t db = gmma_desc(sV + s * C::KV_BYTES + kk * 16 * SW, BK * SW, 8 * SW,
+                                      C::LAYOUT);
+        wgmma_rs(acc, pa[kk], db);
+      }
+      wgmma_commit();
+      fence_regs(acc);
+      wgmma_wait_all();
+      fence_regs(acc);
+    }
+    __syncthreads();   // every warpgroup is done with stage s: refill it
+    if (tid == 0) {
+      // the copies have landed (a warpgroup that skipped the tile did not
+      // wait): no copy is in flight into a stage being refilled, or at exit
+      mbar_wait(bar_k(s), parity);
+      mbar_wait(bar_v(s), parity);
+      if (it + ST < n_tiles) load_kv(it + ST);
+    }
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int d = 1; d <= 2; d <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, d);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, d);
+  }
+  // epilogue: O / l in bf16 into the warpgroup's q tile (its last reader,
+  // the last S wgmma, has completed), swizzled as the map expects, then
+  // one TMA store per box; rows past S are not written
+  if (qw0 >= S) return;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int col = 8 * i + cq;
+    const uint32_t box = sQw + (col / EB) * 64 * SW;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const float l = half ? l1 : l0;
+      uint32_t off = (r0 + 8 * half) * SW + (col % EB) * 2;
+      off ^= ((off >> 7) & (SW / 16 - 1)) << 4;   // the TMA's swizzle of 16-byte chunks
+      const uint32_t v =
+          pack_bf16(acc[4 * i + 2 * half] / (l + 1e-30f), acc[4 * i + 2 * half + 1] / (l + 1e-30f));
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(box + off), "r"(v) : "memory");
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to the TMA
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");   // this warpgroup's writes
+  if ((tid & 127) == 0) {
+#pragma unroll
+    for (int j = 0; j < C::NB; ++j) tma_store(&tm_o, sQw + j * 64 * SW, j * EB, h, qw0, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");   // smem read before exit
+  }
+}
+
+// cuTensorMapEncodeTiled (libcuda), through the runtime's entry-point query
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+constexpr int ENCODE_ERROR = 100000;   // + the CUresult of a refused tensor map
+
+// 4-D map over a contiguous bf16 [B, L, heads, D], box {EB, 1, rows, 1}
+template <int D>
+int encode(CUtensorMap* map, const void* ptr, int B, int L, int heads, int rows) {
+  using C = Cfg<D>;
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)L, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)L * heads * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)C::EB, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle sw = C::SW == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                                : C::SW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                              : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR + (int)r;
+}
+
+template <int D>
+int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
+                int H, int KV, int causal, int window, float softcap, float scale, int q_offset,
+                cudaStream_t stream) {
+  using C = Cfg<D>;
+  if (T_len == 0)   // nothing to attend to: acc / (0 + 1e-30) = 0
+    return (int)cudaMemsetAsync(o, 0, (size_t)B * S * H * D * 2, stream);
+  CUtensorMap tq, tk, tv, to;
+  int rc = encode<D>(&tq, q, B, S, H, 64);
+  if (rc == 0) rc = encode<D>(&tk, k, B, T_len, KV, C::BK);
+  if (rc == 0) rc = encode<D>(&tv, v, B, T_len, KV, C::BK);
+  if (rc == 0) rc = encode<D>(&to, o, B, S, H, 64);
+  if (rc != 0) return rc;
+  cudaError_t e = cudaFuncSetAttribute(attn_fwd_wgmma<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(H, B, (S + C::BQ - 1) / C::BQ);
+  attn_fwd_wgmma<D><<<grid, C::NWG * 128, C::SMEM, stream>>>(
+      tq, tk, tv, to, S, T_len, H, KV, scale, causal, window, softcap, q_offset);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o all of it). Returns the
-// cudaError_t of the launch; the Python wrapper raises on non-zero.
+// dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (wgmma + TMA); q, k, v and
+// o all of it. Returns 0, a cudaError_t, or ENCODE_ERROR + a CUresult; the
+// Python wrapper raises on non-zero.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
                                    int S, int T_len, int H, int KV, int D, int dtype, int causal,
                                    int window, float softcap, float scale, int q_offset,
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_d<float>(q, k, v, o, B, S, T_len, H, KV, D, causal, window, softcap,
-                                  scale, q_offset, st);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(q, k, v, o, B, S, T_len, H, KV, D, causal, window,
-                                          softcap, scale, q_offset, st);
+#define FA_ARGS q, k, v, o, B, S, T_len, H, KV, causal, window, softcap, scale, q_offset, st
+  if (dtype == 0) switch (D) {
+      case 16: return launch_fp32<16>(FA_ARGS);
+      case 32: return launch_fp32<32>(FA_ARGS);
+      case 64: return launch_fp32<64>(FA_ARGS);
+      case 128: return launch_fp32<128>(FA_ARGS);
+      case 256: return launch_fp32<256>(FA_ARGS);
+    }
+  if (dtype == 1) switch (D) {
+      case 16: return launch_bf16<16>(FA_ARGS);
+      case 32: return launch_bf16<32>(FA_ARGS);
+      case 64: return launch_bf16<64>(FA_ARGS);
+      case 128: return launch_bf16<128>(FA_ARGS);
+      case 256: return launch_bf16<256>(FA_ARGS);
+    }
+#undef FA_ARGS
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* flash_attention_error_string(int err) {
+  static char buf[96];
+  if (err >= ENCODE_ERROR) {
+    snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled refused the map, CUresult %d",
+             err - ENCODE_ERROR);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

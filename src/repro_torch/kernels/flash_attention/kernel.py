@@ -1,6 +1,8 @@
 """Prefill flash attention as a hand-written Hopper kernel
 (``csrc/flash_attention.cu``), the port of the Pallas TPU kernel
-``repro.kernels.flash_attention.kernel.flash_attention``.
+``repro.kernels.flash_attention.kernel.flash_attention``. bf16 inputs run
+on the tensor cores (``wgmma``, K/V tiles loaded by TMA); fp32 inputs on the
+CUDA cores, in full fp32.
 
 The wrapper checks device, dtype, shape and contiguity, allocates the
 output with ``torch.empty``, launches on the current stream and counts its

@@ -8,8 +8,10 @@ bf16 before the PV product at different running maxima).
 
 On the card (marker ``cuda``; skipped without one): the hand-written CUDA
 kernels against the plain versions on the same shapes plus the serving
-shapes (qwen2-7b: G = 28/4 = 7; gemma2: D 256; reduced: D 16). These need
-no JAX, so the file runs on a machine without it.
+shapes (qwen2-7b: G = 28/4 = 7; gemma2: D 256; reduced: D 16) and the
+edges of the bf16 kernel's tiles. The fp32 cases hold the fp32 path to
+2e-5, which TF32 products would miss. These need no JAX, so the file runs
+on a machine without it.
 """
 import numpy as np
 import pytest
@@ -25,6 +27,8 @@ ATTN_CASES = [
     (1, 100, 100, 4, 4, 32, True, 48, 50.0),     # ragged + window + softcap
     (2, 64, 256, 8, 2, 64, True, 0, 0.0),        # cross-size (q_offset)
     (1, 64, 64, 2, 1, 128, False, 0, 0.0),       # bidirectional (encoder)
+    (1, 70, 150, 2, 1, 32, True, 0, 0.0),        # ragged S, q_offset 80
+    (1, 160, 160, 2, 2, 16, True, 24, 0.0),      # window masks whole tiles
 ]
 DECODE_CASES = [
     # B, L, H, KV, D, window, softcap  (tests/test_kernels.py:97)
@@ -195,6 +199,13 @@ CUDA_ATTN_CASES = ATTN_CASES + [
     (2, 200, 200, 28, 4, 128, True, 0, 0.0),      # qwen2-7b heads, G = 7
     (1, 96, 96, 4, 2, 256, True, 32, 50.0),       # gemma2 head dim + window
     (3, 40, 40, 4, 4, 16, True, 0, 0.0),          # reduced configs
+    # the bf16 kernel's tile edges (tile shape: Cfg in flash_attention.cu)
+    (1, 1023, 1023, 28, 4, 128, True, 0, 0.0),    # served bucket, partial last tiles
+    (2, 65, 300, 4, 2, 128, True, 0, 0.0),        # partial on both axes, q_offset 235
+    (1, 300, 300, 4, 2, 64, True, 40, 50.0),      # gemma2: window edge inside a kv tile
+    (1, 200, 200, 4, 2, 256, True, 40, 50.0),     # the same at D 256
+    (2, 600, 600, 4, 1, 128, True, 100, 0.0),     # whole kv tiles masked for some rows
+    (3, 130, 130, 8, 2, 64, True, 0, 0.0),        # 3 batch rows: no fill across a row's edge
 ]
 CUDA_DECODE_CASES = DECODE_CASES + [
     (4, 1000, 28, 4, 128, 0, 0.0),                # qwen2-7b heads, G = 7
