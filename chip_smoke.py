@@ -14,16 +14,20 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
 3. kernels: each kernel against its plain PyTorch version on the card at
    the serving shapes (attention at qwen2-7b's H 28, KV 4, D 128, prefill
    also at qwen2-7b's largest bucket, B 8, S 1023, and at gemma2-9b's heads,
-   D 256, window 4096, softcap 50; the RWKV6
+   D 256, window 4096, softcap 50, decode also at jamba's and gemma2-9b's
+   heads; the RWKV6
    scan at rwkv6-7b's H 64, D 64; the Mamba scan at jamba's d_inner 8192,
    d_state 16), with its time, the plain version's, one PyTorch library
-   call's where one computes the same function, and its bound. The grouped
+   call's where one computes the same function, and its bound (kernel and
+   library times are device time, ``graph_ms``; ``events_ms`` keeps the
+   back-to-back event timing of earlier runs). The grouped
    GEMM, which no model calls, is driven on its own path: a dropless MoE
    feed-forward through the op at the expert widths of olmoe-1b-7b,
    qwen3-moe-30b-a3b and jamba-v0.1-52b, with group sizes from the port's
    router on 1,202 tokens, held against the dense fp32 oracle; then each
    product against the plain version, a skewed case with empty groups, and
-   olmoe's capacity buffer against ``_moe_local``'s own einsum;
+   olmoe's capacity buffer against ``_moe_local``'s own einsum. Each
+   decode and grouped GEMM row names the kernel the call took;
 4. parity: the same seeded bf16 weights through the kernels and through
    the plain versions, prefill of 2 ragged prompts plus 4 decode steps,
    logits compared: qwen2-7b and rwkv6-7b at full width with 2 layers,
@@ -38,7 +42,8 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    attention, 4 MoE of 16 experts; its 32 layers, ~104 GB in bf16, do not
    fit one 80 GB card). Each model is freed before the next loads. The
    launch counters, set to 0 before each drain and read after it, show that
-   every prefill and decode went through the kernels.
+   every prefill and decode went through the kernels, and the decode steps
+   through the tensor-core decode kernel.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -80,7 +85,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 
 
 def time_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean time of ``fn`` over ``iters`` back-to-back calls between CUDA
+    events: the device's time, or the host's time to issue the calls where
+    that is longer. Times the plain versions, which sync the host, and the
+    kernels' ``events_ms``, the measure their ``ms`` once was."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -92,6 +100,37 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20, replays=3):
+    """Device time of one call of ``fn``: ``iters`` calls captured in a CUDA
+    graph, the graph replayed ``replays`` times between CUDA events. Unlike
+    ``time_ms`` this leaves out the host's time to issue each call, which
+    at decode's size is longer than the kernels' own."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):     # warm-up off the default stream
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    return ms
 
 
 def bound(nbytes, flops, dtype):
@@ -141,7 +180,8 @@ def prefill_shape(gen, label, B, S, H, KV, D, window, softcap, sdpa):
     err = max_err(out, ref)
     check(f"flash_attention {label}", err, 2e-2)
     del out, ref
-    ms = time_ms(lambda: mha(q, k, v, impl="cuda", **kw))
+    ms = graph_ms(lambda: mha(q, k, v, impl="cuda", **kw))
+    events_ms = time_ms(lambda: mha(q, k, v, impl="cuda", **kw))
     plain_ms = time_ms(lambda: mha(q, k, v, impl="torch", **kw), iters=3,
                        warmup=1)
     library_ms, library = None, sdpa
@@ -149,12 +189,13 @@ def prefill_shape(gen, label, B, S, H, KV, D, window, softcap, sdpa):
         library = "none: SDPA has no softcap"
     else:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True))
     b_ms, b_by = attn_bound(B, S, S, H, KV, D, True, window)
     flops = 4 * D * attn_pairs(S, S, True, window) * B * H
     row = {"shape": label, "max_abs_err": err, "tolerance": 2e-2, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms, "library": library,
+           "events_ms": events_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library": library,
            "bound_ms": b_ms, "bound_by": b_by,
            "tflops": flops / (ms * 1e-3) / 1e12}
     print("prefill_shape " + json.dumps(row))
@@ -202,14 +243,75 @@ def prefill_phase(gen):
             "replaces": "src/repro/kernels/flash_attention/kernel.py:73",
             "shape": row["shape"], "max_abs_err": errs["bf16 causal"],
             "tolerance": 2e-2, "errors": errs, "ms": row["ms"],
+            "events_ms": row["events_ms"],
             "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
             "bound_ms": row["bound_ms"], "bound_us": row["bound_ms"] * 1e3,
             "bound_by": row["bound_by"], "tflops": row["tflops"],
             "served_shapes": shapes}
 
 
+def decode_bound(lengths, B, H, KV, D, window=0):
+    """q and out once, the K and V each row attends to once; 4 D FLOP per
+    attended (position, head)."""
+    n = lengths.long()
+    n_pos = int((n.clamp(max=window) if window > 0 else n).sum())
+    nbytes = 2 * (2 * n_pos * KV * D + 2 * B * H * D) + 4 * B
+    return bound(nbytes, 4 * H * D * n_pos, "bfloat16")
+
+
+def decode_shape(gen, label, B, L, H, KV, D, window, softcap):
+    """bf16 decode at a served head shape, B rows of ragged lengths (1 and
+    L among them) drawn from ``gen``: kernel vs plain version (tol 3e-2),
+    its time, the plain version's, SDPA's where it computes the same
+    function (no softcap; a window shorter than L would need its own
+    mask), and the bound. Printed as ``decode_shape {...}``."""
+    dev = "cuda"
+    kc = torch.randn((B, L, KV, D), generator=gen, device=dev).bfloat16()
+    vc = torch.randn((B, L, KV, D), generator=gen, device=dev).bfloat16()
+    lengths = torch.randint(2, L, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lengths[0], lengths[1] = 1, L
+    q = torch.randn((B, 1, H, D), generator=gen, device=dev).bfloat16()
+    kw = dict(window=window, softcap=softcap)
+    out = decode_mha(q, kc, vc, lengths, impl="cuda", **kw)
+    ref = decode_mha(q, kc, vc, lengths, impl="torch", **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    err = max_err(out, ref)
+    check(f"flash_decode {label}", err, 3e-2)
+    ms = graph_ms(lambda: decode_mha(q, kc, vc, lengths, impl="cuda", **kw),
+                  iters=50)
+    events_ms = time_ms(lambda: decode_mha(q, kc, vc, lengths, impl="cuda",
+                                           **kw), iters=50)
+    plain_ms = time_ms(lambda: decode_mha(q, kc, vc, lengths, impl="torch",
+                                          **kw), iters=10)
+    library_ms, library = None, "none: SDPA has no softcap"
+    if softcap == 0.0 and (window == 0 or window >= L):
+        mask = torch.arange(L, device=dev)[None, :] < lengths[:, None].long()
+        qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
+        library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask[:, None, None, :], enable_gqa=True),
+            iters=50)
+        library = "SDPA, enable_gqa, length mask"
+    b_ms, b_by = decode_bound(lengths, B, H, KV, D, window)
+    row = {"shape": f"{label} B{B} L{L} H{H} KV{KV} D{D} bf16, window "
+                    f"{window}, softcap {softcap}",
+           "lengths": lengths.tolist(), "kernel": fd_kernel.variant(q, kc),
+           "max_abs_err": err, "tolerance": 3e-2, "ms": ms,
+           "events_ms": events_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library": library,
+           "bound_ms": b_ms, "bound_by": b_by}
+    print("decode_shape " + json.dumps(row))
+    return row
+
+
 def decode_phase(gen):
-    """Decode kernel vs its plain version at B 8, L 1024, ragged lengths."""
+    """Decode kernel vs its plain version at B 8, L 1024, ragged lengths
+    (qwen2-7b's heads): four dtype, window and softcap checks and the timed
+    row, drawn from ``gen``; then timed checks at jamba's heads (H 32, KV
+    8) and gemma2-9b's (D 256, window 4096, softcap 50), drawn from a
+    generator of their own so that the later phases' inputs do not depend
+    on them."""
     B, L, H, KV, D = 8, 1024, 28, 4, 128
     dev = "cuda"
     kc = torch.randn((B, L, KV, D), generator=gen, device=dev).bfloat16()
@@ -218,9 +320,10 @@ def decode_phase(gen):
                             dtype=torch.int32)
     lengths[0], lengths[1] = 1, L
     q32 = torch.randn((B, 1, H, D), generator=gen, device=dev)
-    errs = {}
+    errs, kinds = {}, {}
     for label, q in (("bf16 q, bf16 cache", q32.bfloat16()),
                      ("fp32 q, bf16 cache", q32)):
+        kinds[label] = fd_kernel.variant(q, kc)
         for window, softcap in ((0, 0.0), (256, 30.0)):
             kw = dict(window=window, softcap=softcap)
             out = decode_mha(q, kc, vc, lengths, impl="cuda", **kw)
@@ -228,35 +331,37 @@ def decode_phase(gen):
             torch.cuda.synchronize()
             key = f"{label}, window {window}, softcap {softcap}"
             errs[key] = max_err(out, ref)
-            check(f"flash_decode {key}", errs[key], 3e-2)
+            check(f"flash_decode {key} ({kinds[label]})", errs[key], 3e-2)
 
     q = q32.bfloat16()
-    ms = time_ms(lambda: decode_mha(q, kc, vc, lengths, impl="cuda"),
-                 iters=50)
+    ms = graph_ms(lambda: decode_mha(q, kc, vc, lengths, impl="cuda"),
+                  iters=50)
+    events_ms = time_ms(lambda: decode_mha(q, kc, vc, lengths, impl="cuda"),
+                        iters=50)
     plain_ms = time_ms(lambda: decode_mha(q, kc, vc, lengths,
                                                  impl="torch"), iters=10)
     qt = q.transpose(1, 2)
     kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
     mask = (torch.arange(L, device=dev)[None, :] < lengths[:, None].long())
     mask = mask[:, None, None, :]
-    try:
-        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=50)
-    except TypeError:
-        library_ms = None
-    n_pos = int(lengths.clamp(max=L).sum())
-    nbytes = 2 * (2 * n_pos * KV * D + 2 * B * H * D) + 4 * B
-    flops = 4 * H * D * n_pos
-    b_ms, b_by = bound(nbytes, flops, "bfloat16")
+    library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=50)
+    b_ms, b_by = decode_bound(lengths, B, H, KV, D)
+    served = torch.Generator(device=dev).manual_seed(SEED + 2)
+    shapes = [decode_shape(served, "jamba heads", 8, 1024, 32, 8, 128, 0,
+                           0.0),
+              decode_shape(served, "gemma2-9b heads", 8, 1024, 16, 8, 256,
+                           4096, 50.0)]
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode/kernel.py:65",
             "shape": f"B{B} L{L} H{H} KV{KV} D{D} bf16, lengths "
-                     f"{lengths.tolist()}",
+                     f"{lengths.tolist()}", "kernels": kinds,
             "max_abs_err": errs["bf16 q, bf16 cache, window 0, softcap 0.0"],
             "tolerance": 3e-2, "errors": errs, "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b_ms,
-            "bound_us": b_ms * 1e3, "bound_by": b_by}
+            "events_ms": events_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": b_ms,
+            "bound_us": b_ms * 1e3, "bound_by": b_by, "served_shapes": shapes}
 
 
 def rwkv6_phase(gen):
@@ -282,7 +387,8 @@ def rwkv6_phase(gen):
     errs = {"out": max_err(out, ref), "state": max_err(s1, s2)}
     check("rwkv6_scan out (bf16)", errs["out"], 5e-2)
     check("rwkv6_scan final state (fp32)", errs["state"], 1e-3)
-    ms = time_ms(lambda: rwkv6_scan(r, k, v, w, u, s0, impl="cuda"))
+    ms = graph_ms(lambda: rwkv6_scan(r, k, v, w, u, s0, impl="cuda"))
+    events_ms = time_ms(lambda: rwkv6_scan(r, k, v, w, u, s0, impl="cuda"))
     plain_ms = time_ms(lambda: rwkv6_scan(r, k, v, w, u, s0, impl="torch"),
                        iters=5)
     n = B * S * H * D
@@ -296,7 +402,8 @@ def rwkv6_phase(gen):
             "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:64",
             "shape": f"B{B} S{S} H{H} D{D} bf16 r/k/v, fp32 w, initial state",
             "max_abs_err": errs["out"], "tolerance": 5e-2, "errors": errs,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+            "library_ms": None,
             "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by}
 
 
@@ -326,7 +433,8 @@ def mamba_phase(gen):
     errs = {"y": max_err(y, ref), "state": max_err(h1, h2)}
     check("mamba_scan y (fp32)", errs["y"], 1e-3)
     check("mamba_scan final state (fp32)", errs["state"], 1e-3)
-    ms = time_ms(lambda: mamba_scan(*args, impl="cuda"))
+    ms = graph_ms(lambda: mamba_scan(*args, impl="cuda"))
+    events_ms = time_ms(lambda: mamba_scan(*args, impl="cuda"))
     plain_ms = time_ms(lambda: mamba_scan(*args, impl="torch"), iters=5)
     n = Bt * S * DI
     nbytes = 4 * (3 * n + DI * N + 2 * Bt * S * N + DI + 2 * Bt * DI * N)
@@ -337,7 +445,8 @@ def mamba_phase(gen):
             "replaces": "src/repro/kernels/mamba_scan/kernel.py:56",
             "shape": f"Bt{Bt} S{S} DI{DI} N{N} fp32, initial state",
             "max_abs_err": errs["y"], "tolerance": 1e-3, "errors": errs,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+            "library_ms": None,
             "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by}
 
 
@@ -415,6 +524,25 @@ def library_grouped_mm(x, sizes, W):
     return loop, f"per-expert torch.mm loop (torch._grouped_mm: {why})"
 
 
+def tile_fill_bytes(sizes, D, Fo, kind):
+    """Bytes the wgmma kernel's blocks copy into shared memory for one
+    product (``kind`` names its tile shape): per block and 64-wide k step,
+    the 64-row x boxes that hold its rows and the W tile; None for the
+    other kernels. From the group sizes, for comparison with the bytes the
+    product must read from device memory."""
+    shape = {"bf16 wgmma 128x256": (128, 256), "bf16 wgmma 256x128": (256, 128)}
+    if kind not in shape:
+        return None
+    bm, bn = shape[kind]
+    nk, ncol = -(-D // 64), -(-Fo // bn)
+    total = 0
+    for n in sizes.tolist():
+        for r0 in range(0, max(n, 0), bm):
+            boxes = -(-min(bm, n - r0) // 64)
+            total += ncol * nk * (boxes * 64 * 128 + 64 * bn * 2)
+    return total
+
+
 def product_row(label, x, sizes, W):
     """One grouped product: kernel vs plain version, their times, the
     library call's and the bound (x, the W of non-empty experts and out
@@ -425,12 +553,16 @@ def product_row(label, x, sizes, W):
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     err = check_close(f"grouped_gemm {label}", got, want, tol, tol)
-    ms = time_ms(lambda: grouped_gemm(x, sizes, W, impl="cuda"))
+    ms = graph_ms(lambda: grouped_gemm(x, sizes, W, impl="cuda"))
+    events_ms = time_ms(lambda: grouped_gemm(x, sizes, W, impl="cuda"))
     plain_ms = time_ms(lambda: grouped_gemm(x, sizes, W, impl="torch"),
                        iters=5)
     lib_fn, lib_what = library_grouped_mm(x, sizes, W)
     lib_err = max_err(lib_fn()[:int(sizes.sum())], want[:int(sizes.sum())])
-    library_ms = time_ms(lib_fn)
+    # fp32 torch._grouped_mm copies through the host, which a CUDA graph
+    # cannot capture: its time is taken between events
+    library_ms = (graph_ms(lib_fn) if x.dtype == torch.bfloat16
+                  else time_ms(lib_fn))
     rows, D = x.shape
     E, _, Fo = W.shape
     esize = x.element_size()
@@ -438,10 +570,15 @@ def product_row(label, x, sizes, W):
     nbytes = esize * (rows * D + live * D * Fo + rows * Fo)
     flops = 2 * int(sizes.sum()) * D * Fo
     b_ms, b_by = bound(nbytes, flops, str(x.dtype).split(".")[-1])
+    kind = gg_kernel.variant(x, sizes, W)
+    fill = tile_fill_bytes(sizes, D, Fo, kind)
     row = {"product": label, "rows": rows, "D": D, "F": Fo, "E": E,
-           "live_experts": live, "max_abs_err": err, "tolerance": tol,
-           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-           "library": lib_what, "library_max_abs_err": lib_err,
+           "live_experts": live, "kernel": kind, "smem_fill_bytes": fill,
+           "smem_fill_tb_s": fill / (ms * 1e-3) / 1e12 if fill else None,
+           "max_abs_err": err, "tolerance": tol,
+           "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library": lib_what,
+           "library_max_abs_err": lib_err,
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
            "flops": flops}
     print("grouped_gemm_product " + json.dumps(row))
@@ -466,6 +603,14 @@ def grouped_gemm_phase(gen, kernels):
         cases[name] = moe_case(get_config(name), gen)
     torch.cuda.synchronize()
 
+    for name in MOE_CONFIGS:     # the path's products take the wgmma kernel
+        x, p, t_s, _, sizes = cases[name]
+        h = torch.empty((len(t_s), p["w2"].shape[1]), dtype=x.dtype,
+                        device="cuda")
+        kinds = {gg_kernel.variant(x[t_s], sizes, p["w1"]),
+                 gg_kernel.variant(h, sizes, p["w2"])}
+        print(f"grouped_gemm path {name}: {sorted(kinds)}")
+        assert all(k.startswith("bf16 wgmma") for k in kinds), kinds
     for k in kernels:
         k.launches = 0
     outs = {name: dropless_experts(*cases[name], gemm=grouped_gemm)
@@ -509,7 +654,7 @@ def grouped_gemm_phase(gen, kernels):
         del cases[name], outs[name]
         free_card()
 
-    keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+    keys = ("ms", "events_ms", "plain_ms", "library_ms", "bound_ms")
     total = {k: sum(r[k] for r in products) for k in keys}
     b_bytes = sum(r["bytes"] for r in products) / HBM_BYTES_PER_S * 1e3
     b_ops = sum(r["flops"] for r in products) / PEAK_FLOPS["bfloat16"] * 1e3
@@ -656,6 +801,13 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile=False):
         assert all(0 <= t < cfg.vocab for t in r.tokens)
     want = expected_launches(cfg, d)
     assert launches == want, (launches, want, d)
+    if want["flash_decode"]:      # the served cache and q dtype: bf16
+        cache = next(sub["k"] for sub in engine.cache.values() if "k" in sub)
+        q = torch.empty((1, 1, cfg.n_heads, cfg.head_dim), dtype=cache.dtype,
+                        device="cuda")
+        kind = fd_kernel.variant(q, cache)
+        print(f"serving {cfg.name}: decode kernel {kind}")
+        assert kind.startswith("bf16 mma.sync"), kind
     assert all(launches[k] > 0 for k, n in want.items() if n), launches
     assert d["host_syncs"] == d["admit_calls"] + d["steps"], d
     assert after["full_cache_copies"] == 0
@@ -732,6 +884,14 @@ def profile_decode(cfg, batcher, engine, rng, n_steps=4):
           f"wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
           f"({100 * busy / wall_ms:.1f}%), {count / n_steps:.0f} kernels "
           "per step")
+    attn = {k: v for k, v in per_name.items() if "decode_" in k}
+    attn_ms = sum(t for _, t in attn.values())
+    print(f"profile: decode attention {attn_ms / n_steps:.3f} ms/step in "
+          f"{sum(n for n, _ in attn.values()) // n_steps} launches/step "
+          f"= {100 * attn_ms / busy:.1f}% of device time")
+    for name, (n, t) in attn.items():
+        print(f"profile:   decode attention {t / n:.5f} ms a launch, {n // n_steps} "
+              f"a step: {name[:90]}")
     for name, (n, t) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"profile:   {t / n_steps:8.3f} ms/step  {n // n_steps:5d} "
               f"launches/step  {name[:90]}")

@@ -2,10 +2,12 @@
 
 Each ``.cu`` source exposes a plain C interface (pointers and the stream as
 ``void*``, returning ``cudaGetLastError()``), is compiled for ``sm_90a``
-into a shared library on first use, and is cached by the hash of its
-source and flags in ``kernels/_build/`` (ignored by git). This cache is the
-package's only global state. Nothing here runs at import time: the CPU test
-machine has no ``nvcc``.
+into a shared library on first use, and is cached in ``kernels/_build/``
+(ignored by git) under the hash of its source, of every header in
+``kernels/csrc/`` (the shared Hopper primitives, ``hopper.cuh``, on the
+include path) and of the flags, so editing a header rebuilds every kernel.
+This cache is the package's only global state. Nothing here runs at import
+time: the CPU test machine has no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from pathlib import Path
 from typing import Iterable, Optional, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"     # shared headers
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -49,12 +52,17 @@ class CudaKernel:
         self.launches = 0
         self.build_log = ""         # nvcc's output, ptxas register report
         self._fn = None
+        self._lib = None
         self._errstr = None
         self._lock = threading.Lock()
 
     @property
     def library(self) -> Path:
+        """The library's path, named by the hash of the source, every
+        header under ``INCLUDE_DIR`` and the flags."""
         h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(INCLUDE_DIR.glob("*.cuh")):
+            h.update(header.name.encode() + b"\0" + header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
@@ -64,7 +72,8 @@ class CudaKernel:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.library.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp),
+               str(self.source)]
         return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
 
@@ -91,8 +100,17 @@ class CudaKernel:
                     err.argtypes = [ctypes.c_int]
                     err.restype = ctypes.c_char_p
                     self._errstr = err
+                    self._lib = lib
                     self._fn = fn
         return self._fn
+
+    def entry(self, symbol: str, argtypes: Sequence[type]):
+        """Another C function of the same library, returning an int."""
+        self.fn()
+        f = getattr(self._lib, symbol)
+        f.argtypes = list(argtypes)
+        f.restype = ctypes.c_int
+        return f
 
     def check(self, rc: int) -> None:
         if rc != 0:

@@ -2,16 +2,21 @@
 (``csrc/flash_decode.cu``), the port of the Pallas TPU kernel
 ``repro.kernels.flash_decode.kernel.flash_decode_pallas``.
 
-The wrapper checks device, dtype, shape and contiguity, allocates the
-output and the fp32 split partials with ``torch.empty``, launches on the
-current stream and counts its launches in ``KERNEL.launches``. It takes CUDA
-tensors only: the plain version for the CPU is
-``flash_attention.ops._decode_partials``. ``lengths`` stays on the device;
-the kernel reads each row's length itself, so no host sync happens here.
+bf16 q against a bf16 cache runs on the tensor cores (mma.sync, K/V tiles
+loaded by TMA); fp32 q or an fp32 cache on the CUDA cores, in full fp32.
+
+The wrapper checks device, dtype, shape and contiguity, chooses the chunk
+length from the shapes (``split_len``), allocates the output and the fp32
+chunk partials with ``torch.empty``, launches on the current stream and
+counts its launches in ``KERNEL.launches``. It takes CUDA tensors only: the
+plain version for the CPU is ``flash_attention.ops._decode_partials``.
+``lengths`` stays on the device; the kernel reads each row's length itself,
+so no host sync happens here.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 from typing import Optional
 
@@ -28,8 +33,25 @@ KERNEL = CudaKernel(
      _F, _P])
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SPLIT = 256            # cache positions per block; partials combine on device
+TILE = 64              # cache positions of one tile of the tensor-core kernel
+BLOCKS_PER_SM = 2      # chunks enough for this many blocks an SM
 MAX_GROUP = 32         # q heads per kv head that fit the shared-memory plan
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def split_len(B: int, L: int, KV: int, G: int, sms: int) -> int:
+    """Cache positions per block, a multiple of ``TILE``: the fewest that
+    still give ``BLOCKS_PER_SM * sms`` blocks, each block one chunk of a
+    (row, kv head, 16 q heads), but at least two tiles (shorter chunks cost
+    more in partials to combine than their blocks gain). Rows shorter than
+    L leave some blocks empty; those exit at once."""
+    per_chunk = B * KV * -(-G // 16)
+    nsplit = max(1, -(-BLOCKS_PER_SM * sms // per_chunk))
+    return max(2 * TILE, -(-L // (nsplit * TILE)) * TILE)
 
 
 def _check(q, k_cache, v_cache, lengths) -> None:
@@ -78,7 +100,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0 or L == 0:
         return out.zero_()
-    nsplit = -(-L // SPLIT)
+    split = split_len(B, L, KV, G, _sm_count(q.device.index))
+    nsplit = -(-L // split)
     f32 = dict(dtype=torch.float32, device=q.device)
     acc = torch.empty((B, KV, nsplit, G, D), **f32)
     m = torch.empty((B, KV, nsplit, G), **f32)
@@ -88,7 +111,15 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
             out.data_ptr(), B, L, H, KV, D, DTYPES[q.dtype],
-            DTYPES[k_cache.dtype], SPLIT, int(window), float(softcap),
+            DTYPES[k_cache.dtype], split, int(window), float(softcap),
             float(scale), stream_ptr(q))
     KERNEL.check(rc)
     return out
+
+
+def variant(q: torch.Tensor, k_cache: torch.Tensor) -> str:
+    """The partial kernel ``flash_decode`` launches for these dtypes and
+    head dim, as the C library chooses it."""
+    fn = KERNEL.entry("flash_decode_variant", [_I, _I, _I])
+    tc = fn(DTYPES[q.dtype], DTYPES[k_cache.dtype], q.shape[-1])
+    return "bf16 mma.sync, TMA ring" if tc else "fp32 CUDA cores"

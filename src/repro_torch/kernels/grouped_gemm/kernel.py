@@ -2,6 +2,11 @@
 (``csrc/grouped_gemm.cu``), the port of the Pallas TPU kernel
 ``repro.kernels.grouped_gemm.kernel.grouped_gemm_pallas``.
 
+Three kernels, chosen in the C library by dtype and shape alone: bf16 that
+TMA can map (D and F multiples of 8, 16-byte aligned) on ``wgmma`` fed by
+TMA, other bf16 on ``mma.sync``, fp32 on the CUDA cores; ``variant`` names
+the one a call takes.
+
 The wrapper checks device, dtype, shape and contiguity, allocates the
 output and the kernel's schedule scratch with ``torch.empty``, launches on
 the current stream and counts its launches in ``KERNEL.launches``. The
@@ -25,6 +30,8 @@ KERNEL = CudaKernel(
     "grouped_gemm_fwd", [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P])
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = ("fp32 CUDA cores", "bf16 mma.sync 64x128", "bf16 wgmma 128x256",
+            "bf16 wgmma 256x128")
 SIZE_DTYPES = (torch.int32, torch.int64)
 INT_MAX = 2 ** 31 - 1
 
@@ -70,3 +77,14 @@ def grouped_gemm(x: torch.Tensor, group_sizes: torch.Tensor,
             stream_ptr(x))
     KERNEL.check(rc)
     return out
+
+
+def variant(x: torch.Tensor, group_sizes: torch.Tensor, W: torch.Tensor) -> str:
+    """The GEMM kernel ``grouped_gemm`` launches for these arguments, as the
+    C library chooses it (its output is allocated 16-byte aligned)."""
+    _check(x, group_sizes, W)
+    T, D = x.shape
+    E, _, F = W.shape
+    fn = KERNEL.entry("grouped_gemm_variant", [_P, _P, _P, _I, _I, _I, _I, _I])
+    return VARIANTS[fn(x.data_ptr(), W.data_ptr(), None, T, D, F, E,
+                       DTYPES[x.dtype])]

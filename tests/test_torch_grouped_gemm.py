@@ -15,11 +15,12 @@ and the reference oracle; the reference's Pallas path leaves them
 unwritten, so that case is held against "xla" and "ref" only.
 
 On the card (marker ``cuda``; skipped without one): the hand-written CUDA
-kernel against the plain version over the same sweep, with D and F off
-the tile (the 16-byte path and the element path), the tail, int64 sizes,
-more groups than one scan block and the olmoe-1b-7b expert width. Both
-accumulate in fp32 in another order: fp32 within 1e-5 at these depths,
-bf16 within one output rounding (3e-2).
+kernels against the plain version over the same sweep, with D and F off
+the tile (TMA-mappable widths take the wgmma kernel, the others the
+mma.sync kernel), the edges of the wgmma kernel's 128- and 64-row tiles,
+the tail, int64 sizes, more groups than one scan block and the
+olmoe-1b-7b expert width. Both accumulate in fp32 in another order: fp32
+within 1e-5 at these depths, bf16 within one output rounding (3e-2).
 """
 import numpy as np
 import pytest
@@ -202,12 +203,17 @@ def cuda():
 
 
 def _kernel_vs_plain(sizes, dtype, *, T=None, d=D, f=F, sizes_dtype=torch.int32,
-                     seed=0):
+                     seed=0, variant=None):
+    """The kernel against the plain version; ``variant`` (for bf16) is the
+    kernel the call must take."""
     from repro_torch.kernels.grouped_gemm import kernel
     x, s, w = inputs(sizes, T=T, d=d, f=f, seed=seed)
     tt = getattr(torch, dtype)
     x, w = (torch.from_numpy(a).cuda().to(tt) for a in (x, w))
     s = torch.from_numpy(s).cuda().to(sizes_dtype)
+    expect = variant if dtype == "bfloat16" else "fp32 CUDA cores"
+    if expect is not None:
+        assert kernel.variant(x, s, w) == expect
     before = kernel.KERNEL.launches
     got = ops.grouped_gemm(x, s, w)
     want = ops.grouped_gemm(x, s, w, impl="torch")
@@ -225,13 +231,54 @@ def test_kernel_vs_plain(cuda, sizes, dtype):
     _kernel_vs_plain(sizes, dtype)
 
 
+WGMMA_128, WGMMA_256 = "bf16 wgmma 128x256", "bf16 wgmma 256x128"
+MMA_SYNC = "bf16 mma.sync 64x128"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d, f", [(40, 72), (33, 50), (136, 136), (7, 3)])
-def test_kernel_off_the_tile(cuda, d, f, dtype):
-    """D and F not multiples of the tile: multiples of 8 take the 16-byte
-    path, the others the element path."""
-    _kernel_vs_plain([40, 0, 26, 30, 70, 1], dtype, d=d, f=f)
+@pytest.mark.parametrize("d, f, variant", [(40, 72, WGMMA_128), (33, 50, MMA_SYNC),
+                                           (136, 136, WGMMA_128), (7, 3, MMA_SYNC)])
+def test_kernel_off_the_tile(cuda, d, f, variant, dtype):
+    """D and F not multiples of the tile: multiples of 8 take the TMA-fed
+    wgmma kernel, the others the mma.sync kernel's element path."""
+    _kernel_vs_plain([40, 0, 26, 30, 70, 1], dtype, d=d, f=f, variant=variant)
+
+
+def _ragged(total, groups, seed):
+    rng = np.random.default_rng(seed)
+    return rng.multinomial(total, np.full(groups, 1.0 / groups)).tolist()
+
+
+TILE_EDGE_CASES = {
+    # name: (sizes, T, d, f, the bf16 kernel); 256-row tiles where groups
+    # average 128 rows or more and D >= 8192
+    "groups of 1 to 257 rows": ([1, 63, 64, 65, 127, 128, 129, 257], None, 128, 256, WGMMA_128),
+    "T and F off the tile": ([100, 0, 157], 300, 96, 200, WGMMA_128),
+    "128 groups of ~75 rows": (_ragged(9600, 128, 11), None, 128, 128, WGMMA_128),
+    "one group of 5 row tiles": ([600], None, 64, 136, WGMMA_128),
+    "one group of 5 256-row tiles": ([1100], None, 8192, 136, WGMMA_256),
+    "groups of 1 to 513 rows, 256-row tiles": (
+        [1, 127, 128, 129, 255, 256, 257, 511, 513], 2214, 8192, 264, WGMMA_256),
+}
+# fp32 sums over D 8192 drift past the reference's 1e-5 (its depth is 32),
+# so the 256-row cases, which need that depth, run in bf16 only
+TILE_EDGE_PARAMS = [(case, dtype) for case, (_, _, d, _, _) in TILE_EDGE_CASES.items()
+                    for dtype in DTYPES if d < 8192 or dtype == "bfloat16"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case, dtype", TILE_EDGE_PARAMS)
+def test_kernel_tile_edges(cuda, case, dtype):
+    """The wgmma kernel's tiles (128 x 256, or 256 x 128 where groups
+    average 128 rows or more at D >= 8192) against groups that end on,
+    before and after a tile edge, a tail past the last group, F off the
+    column block, and a group of many row tiles; fp32 runs the same shapes
+    on the CUDA cores."""
+    sizes, T, d, f, variant = TILE_EDGE_CASES[case]
+    out = _kernel_vs_plain(sizes, dtype, T=T, d=d, f=f, variant=variant)
+    if T is not None and T > sum(sizes):
+        assert int(torch.count_nonzero(out[sum(sizes):])) == 0
 
 
 @pytest.mark.cuda
@@ -259,4 +306,4 @@ def test_kernel_at_olmoe_width(cuda):
     sizes = rng.multinomial(9616, rng.dirichlet(np.ones(64)))
     sizes[[3, 17]] = 0
     sizes[0] += 9616 - sizes.sum()
-    _kernel_vs_plain(sizes.tolist(), "bfloat16", d=2048, f=1024)
+    _kernel_vs_plain(sizes.tolist(), "bfloat16", d=2048, f=1024, variant=WGMMA_128)

@@ -211,6 +211,17 @@ CUDA_DECODE_CASES = DECODE_CASES + [
     (4, 1000, 28, 4, 128, 0, 0.0),                # qwen2-7b heads, G = 7
     (2, 600, 16, 8, 256, 100, 30.0),              # gemma2 head dim + window
     (3, 48, 4, 4, 16, 0, 0.0),                    # reduced configs
+    # the tensor-core kernel's edges (16 q heads a block, 64-position tiles,
+    # chunk length from flash_decode/kernel.py:split_len)
+    (2, 300, 4, 4, 64, 0, 0.0),                   # G = 1
+    (2, 300, 32, 8, 128, 0, 0.0),                 # G = 4 (jamba's heads)
+    (2, 300, 8, 1, 128, 0, 0.0),                  # G = 8
+    (2, 300, 16, 1, 128, 0, 0.0),                 # G = 16: all 16 rows of A
+    (2, 300, 32, 1, 64, 0, 0.0),                  # G = 32: two blocks of 16 heads
+    (1, 1000, 28, 4, 128, 0, 0.0),                # B 1: the split spreads one row
+    (2, 600, 8, 2, 64, 100, 30.0),                # D 64 with window and softcap
+    (1, 700, 8, 4, 256, 300, 50.0),               # D 256 with window and softcap
+    (4, 4096, 32, 4, 128, 0, 0.0),                # chunks longer than the ring
 ]
 
 
@@ -246,3 +257,47 @@ def test_flash_decode_kernel_vs_plain(cuda, case, q_dtype, cache_dtype):
     tol = DECODE_TOL["bfloat16" if "bfloat16" in (q_dtype, cache_dtype)
                      else "float32"]
     _close(out.float().cpu(), ref.float().cpu(), tol)
+    from repro_torch.kernels.flash_decode import kernel as fd
+    tc = q_dtype == cache_dtype == "bfloat16" and D in (16, 32, 64, 128, 256)
+    assert fd.variant(q, k).startswith("bf16 mma.sync" if tc else "fp32")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("window", [0, 100])
+def test_flash_decode_kernel_at_split_edges(cuda, dtype, window):
+    """Row lengths of 1, at the 64-position tile edges and at the edges of
+    the chunk that the host chose for this card (qwen2-7b's heads)."""
+    from repro_torch.kernels.flash_decode import kernel as fd
+    B, L, H, KV, D = 10, 1024, 28, 4, 128
+    split = fd.split_len(B, L, KV, H // KV, fd._sm_count(cuda.index or 0))
+    assert split % fd.TILE == 0 and split < L
+    lengths = np.array([1, 63, 64, 65, split - 1, split, split + 1,
+                        2 * split + 1, L - 1, L], np.int32)
+    q, k, v, _ = _decode_inputs((B, L, H, KV, D))
+    q, k, v = (_t(x, dtype, cuda) for x in (q, k, v))
+    lens = torch.from_numpy(lengths).to(cuda)
+    out = t_ops.decode_mha(q, k, v, lens, impl="cuda", window=window)
+    ref = t_ops.decode_mha(q, k, v, lens, impl="torch", window=window)
+    torch.cuda.synchronize()
+    _close(out.float().cpu(), ref.float().cpu(), DECODE_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_decode_ignores_the_cache_past_each_length(cuda):
+    """NaN in the cache past a row's length (memory a real cache never
+    wrote) must not reach the output: the kernels never multiply it in."""
+    B, L, H, KV, D = 3, 500, 28, 4, 128
+    q, k, v, _ = _decode_inputs((B, L, H, KV, D))
+    lengths = np.array([1, 130, 437], np.int32)
+    for i, n in enumerate(lengths):
+        k[i, n:] = np.nan
+        v[i, n:] = np.nan
+    for dtype in DTYPES:
+        qt, kt, vt = (_t(x, dtype, cuda) for x in (q, k, v))
+        lens = torch.from_numpy(lengths).to(cuda)
+        out = t_ops.decode_mha(qt, kt, vt, lens, impl="cuda")
+        want = t_ops.decode_mha(qt, kt, vt, lens, impl="ref")
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all(), dtype
+        _close(out.float().cpu(), want.float().cpu(), DECODE_TOL[dtype])
