@@ -16,11 +16,14 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    also at qwen2-7b's largest bucket, B 8, S 1023, and at gemma2-9b's heads,
    D 256, window 4096, softcap 50, decode also at jamba's and gemma2-9b's
    heads; the RWKV6
-   scan at rwkv6-7b's H 64, D 64; the Mamba scan at jamba's d_inner 8192,
-   d_state 16), with its time, the plain version's, one PyTorch library
-   call's where one computes the same function, and its bound (kernel and
-   library times are device time, ``graph_ms``; ``events_ms`` keeps the
-   back-to-back event timing of earlier runs). The grouped
+   scan at rwkv6-7b's H 64, D 64 and the Mamba scan at jamba's d_inner 8192,
+   d_state 16, each at B 2, S 601 and at the served B 1, S 601 and S 300,
+   with the per-step kernel that the scans keep for other shapes timed
+   beside it on the same inputs), with
+   its time, the plain version's, one PyTorch library call's where one
+   computes the same function, and its bound (kernel and library times are
+   device time, ``graph_ms``; ``events_ms`` keeps the back-to-back event
+   timing of earlier runs). The grouped
    GEMM, which no model calls, is driven on its own path: a dropless MoE
    feed-forward through the op at the expert widths of olmoe-1b-7b,
    qwen3-moe-30b-a3b and jamba-v0.1-52b, with group sizes from the port's
@@ -37,7 +40,9 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    (weights 1, 1, 2) and seeded bf16 weights: qwen2-7b at full width and
    depth (28 layers), then ``torch.profiler`` traces of a few full-batch
    decode steps and of one admit call (4 prompts of 512); rwkv6-7b at
-   full width and depth (32 layers);
+   full width and depth (32 layers), then traces of one served admit call
+   (one prompt of 600) with the new scan kernel, the per-step one and the new
+   one again, for the scan's share of its device time (jamba likewise);
    jamba-v0.1-52b at full width with one period (8 layers: 7 Mamba, 1
    attention, 4 MoE of 16 experts; its 32 layers, ~104 GB in bf16, do not
    fit one 80 GB card). Each model is freed before the next loads. The
@@ -364,11 +369,55 @@ def decode_phase(gen):
             "bound_us": b_ms * 1e3, "bound_by": b_by, "served_shapes": shapes}
 
 
-def rwkv6_phase(gen):
-    """RWKV6 scan kernel vs its plain version at rwkv6-7b shapes: B 2,
-    S 601 (not a multiple of the 16-step chunk), H 64, D 64, bf16 r/k/v,
-    fp32 decay and a nonzero initial state."""
-    B, S, H, D = 2, 601, 64, 64
+def per_step_entry(kernel, symbol, fix=lambda args: args):
+    """A callable with the C entry point's arguments that runs the per-step
+    kernel of ``kernel``'s library (its ``symbol``) whatever the dtype and
+    shape; ``fix`` may rewrite the arguments. For timing the per-step
+    kernel beside the new one; the port's wrappers never call it."""
+    raw = kernel.entry(symbol, kernel.argtypes)
+    return lambda *args: raw(*fix(args))
+
+
+def rwkv6_per_step_args(args):
+    """The per-step kernel's own v split (its plan's rule) in place of the
+    chunked kernel's: args are rwkv6_scan_fwd's (B, S, H, D at 8-11, dtype
+    12, vsplit 13)."""
+    B, S, H, D = args[8:12]
+    vsplit = rs_kernel.plan(torch.float32, B, S, H, D,
+                            rs_kernel.sm_count(0))["vsplit"]
+    return args[:13] + (vsplit,) + args[14:]
+
+
+def with_fn(kernel, fn, call):
+    """``call()`` with ``kernel``'s loaded C entry point replaced by ``fn``
+    (the wrapper, its checks and its launch count unchanged)."""
+    kernel.fn()
+    saved, kernel._fn = kernel._fn, fn
+    try:
+        return call()
+    finally:
+        kernel._fn = saved
+
+
+def rwkv6_bound(B, S, H, D):
+    """r, k, v (bf16) and w (fp32) read once, u and the state in and out
+    once, out written once; the per-step form's fp32 operations, 5 per
+    state element (r^T S and w S + k v) and 4 per output for the bonus.
+    Returns (bound ms, by what, bytes-only ms)."""
+    n = B * S * H * D
+    nbytes = 3 * 2 * n + 4 * n + 4 * H * D + 2 * 4 * B * H * D * D + 2 * n
+    flops = 5 * n * D + 4 * n
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    return b_ms, b_by, nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def rwkv6_shape(gen, B, S, label, plain_iters=3):
+    """bf16 r/k/v at rwkv6-7b's H 64, D 64, fp32 decay, a nonzero initial
+    state, drawn from ``gen``: the kernel against its plain version (out
+    5e-2, one bf16 ulp at |out| ~ 4; the fp32 state 1e-3), its device time,
+    the per-step kernel's on the same inputs, the plain version's and
+    the bound. Printed as ``rwkv6_shape {...}``."""
+    H, D = 64, 64
     dev = "cuda"
 
     def randn(*shape, scale=1.0):
@@ -378,40 +427,65 @@ def rwkv6_phase(gen):
     w = torch.exp(-torch.exp(randn(B, S, H, D, scale=0.5)))
     u = randn(H, D, scale=0.1)
     s0 = randn(B, H, D, D, scale=0.1)
-    out, s1 = rwkv6_scan(r, k, v, w, u, s0, impl="cuda")
-    ref, s2 = rwkv6_scan(r, k, v, w, u, s0, impl="torch")
+    args = (r, k, v, w, u, s0)
+    old = per_step_entry(rs_kernel.KERNEL, "rwkv6_scan_per_step_fwd",
+                         rwkv6_per_step_args)
+    out, s1 = rwkv6_scan(*args, impl="cuda")
+    ref, s2 = rwkv6_scan(*args, impl="torch")
+    out12, s12 = with_fn(rs_kernel.KERNEL, old,
+                         lambda: rwkv6_scan(*args, impl="cuda"))
     torch.cuda.synchronize()
-    # out is bf16: one ulp at |out| ~ 4 is 3e-2 (the reference's 5e-2);
-    # the state is fp32, off by the chunked form's exp(+-cumsum) rounding
-    # (|cumsum| <= 80, fp32 ulp 7.6e-6) on values of magnitude ~1
-    errs = {"out": max_err(out, ref), "state": max_err(s1, s2)}
-    check("rwkv6_scan out (bf16)", errs["out"], 5e-2)
-    check("rwkv6_scan final state (fp32)", errs["state"], 1e-3)
-    ms = graph_ms(lambda: rwkv6_scan(r, k, v, w, u, s0, impl="cuda"))
-    events_ms = time_ms(lambda: rwkv6_scan(r, k, v, w, u, s0, impl="cuda"))
-    plain_ms = time_ms(lambda: rwkv6_scan(r, k, v, w, u, s0, impl="torch"),
-                       iters=5)
-    n = B * S * H * D
-    nbytes = 3 * 2 * n + 4 * n + 4 * H * D + 2 * 4 * B * H * D * D + 2 * n
-    # per state element r^T S (2) and w S + k v (3); the bonus (r.u.k) v
-    # is a per-row scalar times v: 4 per (b, s, h, column)
-    flops = 5 * n * D + 4 * n
-    b_ms, b_by = bound(nbytes, flops, "float32")
-    return {"name": "rwkv6_scan", "route": "cuda",
-            "source": "src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
-            "replaces": "src/repro/kernels/rwkv6_scan/kernel.py:64",
-            "shape": f"B{B} S{S} H{H} D{D} bf16 r/k/v, fp32 w, initial state",
-            "max_abs_err": errs["out"], "tolerance": 5e-2, "errors": errs,
-            "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
-            "library_ms": None,
-            "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by}
+    assert torch.isfinite(out.float()).all() and torch.isfinite(s1).all()
+    assert out.shape == r.shape and s1.shape == (B, H, D, D)
+    errs = {"out": max_err(out, ref), "state": max_err(s1, s2),
+            "per-step out": max_err(out12, ref),
+            "per-step state": max_err(s12, s2)}
+    check(f"rwkv6_scan {label} out (bf16)", errs["out"], 5e-2)
+    check(f"rwkv6_scan {label} final state (fp32)", errs["state"], 1e-3)
+    check(f"rwkv6_scan {label} per-step kernel out", errs["per-step out"], 5e-2)
+    ms = graph_ms(lambda: rwkv6_scan(*args, impl="cuda"), iters=50)
+    per_step_ms = with_fn(rs_kernel.KERNEL, old, lambda: graph_ms(
+        lambda: rwkv6_scan(*args, impl="cuda"), iters=50))
+    plain_ms = time_ms(lambda: rwkv6_scan(*args, impl="torch"),
+                       iters=plain_iters, warmup=1)
+    b_ms, b_by, bytes_ms = rwkv6_bound(B, S, H, D)
+    row = {"shape": f"{label}: B{B} S{S} H{H} D{D} bf16 r/k/v, fp32 w, "
+                    "initial state",
+           "kernel": rs_kernel.variant(r),
+           "plan": rs_kernel.plan(r.dtype, B, S, H, D, rs_kernel.sm_count(0)),
+           "max_abs_err": errs["out"], "tolerance": 5e-2, "errors": errs,
+           "ms": ms, "per_step_ms": per_step_ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes_bound_ms": bytes_ms,
+           "share_of_bound": b_ms / ms}
+    print("rwkv6_shape " + json.dumps(row))
+    return row, args
 
 
-def mamba_phase(gen):
-    """Mamba scan kernel vs its plain version at jamba shapes: Bt 2, S 601,
-    d_inner 8192, d_state 16, fp32, A = -(1..16) as jamba's A_log gives,
-    dt from a softplus, a nonzero initial state."""
-    Bt, S, DI, N = 2, 601, 8192, 16
+def rwkv6_phase(gen):
+    """The RWKV6 scan at rwkv6-7b's heads: B 2, S 601 (the smoke's shape,
+    not a multiple of the 16-step chunk; inputs from ``gen``), then the
+    served shapes, B 1 at S 601 and S 300 (exact-length admission gives
+    B 1; inputs from a generator of their own)."""
+    row, args = rwkv6_shape(gen, 2, 601, "smoke", plain_iters=5)
+    events_ms = time_ms(lambda: rwkv6_scan(*args, impl="cuda"))
+    served = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    shapes = [rwkv6_shape(served, 1, 601, "served")[0],
+              rwkv6_shape(served, 1, 300, "served")[0]]
+    return dict(row, name="rwkv6_scan", route="cuda",
+                source="src/repro_torch/kernels/rwkv6_scan/csrc/rwkv6_scan.cu",
+                replaces="src/repro/kernels/rwkv6_scan/kernel.py:64",
+                events_ms=events_ms, library_ms=None,
+                bound_us=row["bound_ms"] * 1e3, served_shapes=shapes)
+
+
+def mamba_shape(gen, Bt, S, label, plain_iters=3):
+    """fp32 at jamba's d_inner 8192, d_state 16, A = -(1..16) as jamba's
+    A_log gives, dt from a softplus, a nonzero initial state, drawn from
+    ``gen``: the kernel against its plain version (1e-3 on y and the
+    state), its device time, the per-step kernel's on the same
+    inputs, the plain version's and the bound. Printed as
+    ``mamba_shape {...}``."""
+    DI, N = 8192, 16
     dev = "cuda"
 
     def randn(*shape, scale=1.0):
@@ -425,29 +499,55 @@ def mamba_phase(gen):
     D = torch.ones(DI, device=dev)
     h0 = randn(Bt, DI, N, scale=0.5)
     args = (x, dt, A, Bm, Cm, D, h0)
+    old = per_step_entry(ms_kernel.KERNEL, "mamba_scan_per_step_fwd")
     y, h1 = mamba_scan(*args, impl="cuda")
     ref, h2 = mamba_scan(*args, impl="torch")
+    y12, h12 = with_fn(ms_kernel.KERNEL, old,
+                       lambda: mamba_scan(*args, impl="cuda"))
     torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and y.shape == x.shape
     # fp32 both; the chunked plain form's exp(+-cumsum) (|cumsum| <= 80,
     # fp32 ulp 7.6e-6) leaves ~1e-5 relative error per state, summed over 16
-    errs = {"y": max_err(y, ref), "state": max_err(h1, h2)}
-    check("mamba_scan y (fp32)", errs["y"], 1e-3)
-    check("mamba_scan final state (fp32)", errs["state"], 1e-3)
-    ms = graph_ms(lambda: mamba_scan(*args, impl="cuda"))
-    events_ms = time_ms(lambda: mamba_scan(*args, impl="cuda"))
-    plain_ms = time_ms(lambda: mamba_scan(*args, impl="torch"), iters=5)
+    errs = {"y": max_err(y, ref), "state": max_err(h1, h2),
+            "per-step y": max_err(y12, ref),
+            "per-step state": max_err(h12, h2)}
+    check(f"mamba_scan {label} y (fp32)", errs["y"], 1e-3)
+    check(f"mamba_scan {label} final state (fp32)", errs["state"], 1e-3)
+    check(f"mamba_scan {label} per-step kernel y", errs["per-step y"], 1e-3)
+    ms = graph_ms(lambda: mamba_scan(*args, impl="cuda"), iters=50)
+    per_step_ms = with_fn(ms_kernel.KERNEL, old, lambda: graph_ms(
+        lambda: mamba_scan(*args, impl="cuda"), iters=50))
+    plain_ms = time_ms(lambda: mamba_scan(*args, impl="torch"),
+                       iters=plain_iters, warmup=1)
     n = Bt * S * DI
     nbytes = 4 * (3 * n + DI * N + 2 * Bt * S * N + DI + 2 * Bt * DI * N)
     flops = 8 * n * N          # dt A, exp, h update (2), dt B x (2), C h, sum
     b_ms, b_by = bound(nbytes, flops, "float32")
-    return {"name": "mamba_scan", "route": "cuda",
-            "source": "src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
-            "replaces": "src/repro/kernels/mamba_scan/kernel.py:56",
-            "shape": f"Bt{Bt} S{S} DI{DI} N{N} fp32, initial state",
-            "max_abs_err": errs["y"], "tolerance": 1e-3, "errors": errs,
-            "ms": ms, "events_ms": events_ms, "plain_ms": plain_ms,
-            "library_ms": None,
-            "bound_ms": b_ms, "bound_us": b_ms * 1e3, "bound_by": b_by}
+    row = {"shape": f"{label}: Bt{Bt} S{S} DI{DI} N{N} fp32, initial state",
+           "kernel": ms_kernel.variant(x, N),
+           "plan": ms_kernel.plan(Bt, S, DI, N, ms_kernel.sm_count(0)),
+           "max_abs_err": errs["y"], "tolerance": 1e-3, "errors": errs,
+           "ms": ms, "per_step_ms": per_step_ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "share_of_bound": b_ms / ms,
+           "exps": n * N}
+    print("mamba_shape " + json.dumps(row))
+    return row, args
+
+
+def mamba_phase(gen):
+    """The Mamba scan at jamba's d_inner and d_state: Bt 2, S 601 (the
+    smoke's shape; inputs from ``gen``), then the served shapes, Bt 1 at
+    S 601 and S 300 (inputs from a generator of their own)."""
+    row, args = mamba_shape(gen, 2, 601, "smoke", plain_iters=5)
+    events_ms = time_ms(lambda: mamba_scan(*args, impl="cuda"))
+    served = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    shapes = [mamba_shape(served, 1, 601, "served")[0],
+              mamba_shape(served, 1, 300, "served")[0]]
+    return dict(row, name="mamba_scan", route="cuda",
+                source="src/repro_torch/kernels/mamba_scan/csrc/mamba_scan.cu",
+                replaces="src/repro/kernels/mamba_scan/kernel.py:56",
+                events_ms=events_ms, library_ms=None,
+                bound_us=row["bound_ms"] * 1e3, served_shapes=shapes)
 
 
 def check_close(name, got, want, atol, rtol):
@@ -741,10 +841,14 @@ def parity_phase(cfg, n_layers, tol, why, compute_dtype=torch.bfloat16):
     del params
 
 
-def serving_phase(cfg, kernels, *, n_req, max_new, profile=False):
+def serving_phase(cfg, kernels, *, n_req, max_new, profile=False,
+                  profile_scan=None):
     """``cfg`` served to 3 WRR tenants behind ``ContinuousBatcher``; the
     kernels' launch counts over the measured drain must be
-    ``expected_launches``. Returns those counts."""
+    ``expected_launches``. Returns those counts. After the drain,
+    ``profile`` traces decode steps and an attention admit call;
+    ``profile_scan`` = (kernel, per-step entry, kernel-name match) traces a
+    recurrent admit call with each scan kernel."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.monotonic()
     params = M.init_params(cfg, generator=gen, device="cuda",
@@ -835,6 +939,8 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile=False):
     if profile:
         profile_decode(cfg, batcher, engine, rng)
         profile_admit(cfg, engine, rng)
+    if profile_scan:
+        profile_scan_admit(cfg, engine, rng, *profile_scan)
     engine.step = step          # break the engine <-> closure cycle
     return launches
 
@@ -909,11 +1015,13 @@ def device_ms_by_name(prof):
     return per_name
 
 
-def profile_admit(cfg, engine, rng, n_req=4, length=512):
+def profile_admit(cfg, engine, rng, n_req=4, length=512, match="attn_fwd",
+                  label="prefill attention"):
     """Device time by kernel name over one admit call: ``n_req`` prompts of
     ``length`` tokens (one bucket), one token each so no slot stays taken;
-    a first call of the same shape runs untraced. Prints the prefill
-    attention kernel's share of the device time."""
+    a first call of the same shape runs untraced. Prints the share of the
+    device time of the kernels whose names hold ``match``, and returns
+    (their ms, device busy ms, wall ms)."""
     from torch.profiler import ProfilerActivity, profile
 
     def reqs(uid0):
@@ -933,17 +1041,32 @@ def profile_admit(cfg, engine, rng, n_req=4, length=512):
     per_name = device_ms_by_name(prof)
     busy = sum(t for _, t in per_name.values())
     assert busy > 0, "the profiler recorded no device time"
-    attn = {k: v for k, v in per_name.items() if "attn_fwd" in k}
-    attn_ms = sum(t for _, t in attn.values())
-    print(f"profile_admit: one admit call of {n_req} x {length} tokens "
-          f"({cfg.n_layers} layers) wall {wall_ms:.2f} ms, device busy "
-          f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
-          f"{sum(n for n, _ in per_name.values())} kernels; prefill "
-          f"attention {attn_ms:.3f} ms in {sum(n for n, _ in attn.values())} "
-          f"launches = {100 * attn_ms / busy:.1f}% of device time")
+    mine = {k: v for k, v in per_name.items() if match in k}
+    mine_ms = sum(t for _, t in mine.values())
+    print(f"profile_admit {cfg.name}: one admit call of {n_req} x {length} "
+          f"tokens ({cfg.n_layers} layers) wall {wall_ms:.2f} ms, device "
+          f"busy {busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
+          f"{sum(n for n, _ in per_name.values())} kernels; {label} "
+          f"{mine_ms:.3f} ms in {sum(n for n, _ in mine.values())} "
+          f"launches = {100 * mine_ms / busy:.1f}% of device time")
     for name, (n, t) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:10]:
         print(f"profile_admit:   {t:8.3f} ms {100 * t / busy:5.1f}%  {n:5d} "
               f"launches  {name[:90]}")
+    return mine_ms, busy, wall_ms
+
+
+def profile_scan_admit(cfg, engine, rng, kernel, old, match):
+    """One served recurrent admit call (B 1, a 600-token prompt) profiled
+    with the scan's new kernel, with the per-step kernel (``old``,
+    through the same wrapper), and with the new one again, in turn: the
+    scan's share of the call's device time and the call's wall time."""
+    for tag, fn in (("new", None), ("per-step", old), ("new", None)):
+        call = lambda: profile_admit(cfg, engine, rng, n_req=1, length=600,
+                                     match=match, label=f"scan ({tag} kernel)")
+        scan_ms, busy, wall = call() if fn is None else with_fn(kernel, fn, call)
+        print(f"profile_scan_admit {cfg.name} {tag}: scan {scan_ms:.3f} ms "
+              f"= {100 * scan_ms / busy:.1f}% of {busy:.2f} ms device time; "
+              f"admit call wall {wall:.2f} ms")
 
 
 def _leaves(tree):
@@ -1027,11 +1150,16 @@ def main() -> int:
     by_path["qwen2-7b"] = serving_phase(qwen2, kernels,
                                         n_req=24, max_new=32, profile=True)
     free_card()
-    by_path["rwkv6-7b"] = serving_phase(rwkv6, kernels,
-                                        n_req=24, max_new=32)
+    by_path["rwkv6-7b"] = serving_phase(
+        rwkv6, kernels, n_req=24, max_new=32,
+        profile_scan=(rs_kernel.KERNEL, per_step_entry(
+            rs_kernel.KERNEL, "rwkv6_scan_per_step_fwd", rwkv6_per_step_args),
+            "rwkv6_"))
     free_card()
-    by_path["jamba-v0.1-52b/8"] = serving_phase(jamba, kernels,
-                                                n_req=24, max_new=32)
+    by_path["jamba-v0.1-52b/8"] = serving_phase(
+        jamba, kernels, n_req=24, max_new=32,
+        profile_scan=(ms_kernel.KERNEL, per_step_entry(
+            ms_kernel.KERNEL, "mamba_scan_per_step_fwd"), "mamba_"))
     free_card()
     launches = {k.name: sum(p[k.name] for p in by_path.values())
                 for k in kernels}

@@ -12,6 +12,7 @@ time: the CPU test machine has no ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -132,6 +133,13 @@ def build_all(kernels: Iterable[CudaKernel]) -> None:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The number of SMs of CUDA device ``index``."""
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(t) -> ctypes.c_void_p:

@@ -46,6 +46,12 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
+// barrier `id` (1-15; 0 is __syncthreads') that completes when `n` threads
+// (a multiple of 32) have reached it: lets a group of warps meet alone
+__device__ __forceinline__ void named_barrier(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
 __device__ __forceinline__ uint64_t globaltimer_ns() {
   uint64_t t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
@@ -132,6 +138,20 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, 
           "l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Generic-proxy writes to shared memory made visible to the TMA (before a
+// barrier and the store that reads them).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N committed stores still read their shared-memory source
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // Byte offset `off` of a tile written by TMA with a `sw`-byte swizzle
@@ -326,23 +346,33 @@ inline EncodeTiledFn encode_tiled() {
 
 constexpr int ENCODE_ERROR = 100000;   // + the CUresult of a refused tensor map
 
-// A bf16 tensor map of `rank` dimensions (dims innermost first, byte
-// strides of dims 1..rank-1), boxes of `box` elements, `sw`-byte swizzle
-// (32, 64 or 128), zero fill outside the tensor. Returns 0, the
-// cudaError_t of a missing encoder, or ENCODE_ERROR + the CUresult.
-inline int encode_bf16(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
-                       const cuuint64_t* strides, const cuuint32_t* box, int sw) {
+// A tensor map of `rank` dimensions over elements of `type` (dims innermost
+// first, byte strides of dims 1..rank-1), boxes of `box` elements, `sw`-byte
+// swizzle (32, 64 or 128; 0 for none), zero fill outside the tensor.
+// Returns 0, the cudaError_t of a missing encoder, or ENCODE_ERROR + the
+// CUresult.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                      const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box,
+                      int sw) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorSymbolNotFound;
   const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
   const CUtensorMapSwizzle swz = sw == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : sw == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                            : CU_TENSOR_MAP_SWIZZLE_32B;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swz, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                                 : sw == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                            : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(ptr), dims, strides, box,
+                        elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR + (int)r;
+}
+
+// A bf16 tensor map (see encode_map), swizzled by `sw` bytes: 128, 64, or
+// 32 for any other value.
+inline int encode_bf16(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box, int sw) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, rank, dims, strides, box,
+                    sw == 128 || sw == 64 ? sw : 32);
 }
 
 // The message for a code returned by an entry point: a cudaError_t or

@@ -459,13 +459,13 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
       asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(box + off), "r"(v) : "memory");
     }
   }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to the TMA
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");   // this warpgroup's writes
+  fence_proxy_async();              // visible to the TMA
+  named_barrier(1 + wg, 128);       // this warpgroup's writes
   if ((tid & 127) == 0) {
 #pragma unroll
     for (int j = 0; j < C::NB; ++j) tma_store(&tm_o, sQw + j * 64 * SW, j * EB, h, qw0, b);
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");   // smem read before exit
+    bulk_commit();
+    bulk_wait_read<0>();            // smem read before exit
   }
 }
 

@@ -16,13 +16,12 @@ so no host sync happens here.
 from __future__ import annotations
 
 import ctypes
-import functools
 from pathlib import Path
 from typing import Optional
 
 import torch
 
-from .._build import CudaKernel, stream_ptr
+from .._build import CudaKernel, sm_count, stream_ptr
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -36,11 +35,6 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TILE = 64              # cache positions of one tile of the tensor-core kernel
 BLOCKS_PER_SM = 2      # chunks enough for this many blocks an SM
 MAX_GROUP = 32         # q heads per kv head that fit the shared-memory plan
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def split_len(B: int, L: int, KV: int, G: int, sms: int) -> int:
@@ -100,7 +94,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.empty_like(q)
     if B == 0 or L == 0:
         return out.zero_()
-    split = split_len(B, L, KV, G, _sm_count(q.device.index))
+    split = split_len(B, L, KV, G, sm_count(q.device.index))
     nsplit = -(-L // split)
     f32 = dict(dtype=torch.float32, device=q.device)
     acc = torch.empty((B, KV, nsplit, G, D), **f32)

@@ -35,9 +35,9 @@ def copies(tmp_path, monkeypatch):
 
 
 def test_the_repo_kernels_include_the_shared_header():
-    for source in KERNELS.glob("*/csrc/*.cu"):
-        if "rwkv6" in source.name or "mamba" in source.name:
-            continue        # the scans use no Hopper primitive yet
+    sources = sorted(KERNELS.glob("*/csrc/*.cu"))
+    assert len(sources) == 5
+    for source in sources:
         assert '#include "hopper.cuh"' in source.read_text(), source
     assert _build.INCLUDE_DIR == HEADER.parent
 

@@ -270,7 +270,7 @@ def test_flash_decode_kernel_at_split_edges(cuda, dtype, window):
     the chunk that the host chose for this card (qwen2-7b's heads)."""
     from repro_torch.kernels.flash_decode import kernel as fd
     B, L, H, KV, D = 10, 1024, 28, 4, 128
-    split = fd.split_len(B, L, KV, H // KV, fd._sm_count(cuda.index or 0))
+    split = fd.split_len(B, L, KV, H // KV, fd.sm_count(cuda.index or 0))
     assert split % fd.TILE == 0 and split < L
     lengths = np.array([1, 63, 64, 65, split - 1, split, split + 1,
                         2 * split + 1, L - 1, L], np.int32)
