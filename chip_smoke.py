@@ -37,18 +37,30 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    jamba-v0.1-52b at full width with one period of 8 layers, in bf16 and
    once more in fp32 (compute and cache);
 5. serving: each model behind ``ContinuousBatcher`` with 3 WRR tenants
-   (weights 1, 1, 2) and seeded bf16 weights: qwen2-7b at full width and
-   depth (28 layers), then ``torch.profiler`` traces of a few full-batch
-   decode steps and of one admit call (4 prompts of 512); rwkv6-7b at
-   full width and depth (32 layers), then traces of one served admit call
-   (one prompt of 600) with the new scan kernel, the per-step one and the new
-   one again, for the scan's share of its device time (jamba likewise);
-   jamba-v0.1-52b at full width with one period (8 layers: 7 Mamba, 1
-   attention, 4 MoE of 16 experts; its 32 layers, ~104 GB in bf16, do not
-   fit one 80 GB card). Each model is freed before the next loads. The
-   launch counters, set to 0 before each drain and read after it, show that
-   every prefill and decode went through the kernels, and the decode steps
-   through the tensor-core decode kernel.
+   (weights 1, 1, 2) and seeded bf16 weights, served by two engines on
+   the same weights in one process: the default one, whose decode step is
+   one CUDA graph captured in its constructor, and its eager twin
+   (``cuda_graph=False``). The eager twin first runs one decode step under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no op of the step may sync
+   with the host). The same 24 seeded requests then drain through the
+   twins in turn, graphed, eager, graphed, eager; each drain prints
+   tokens/s, the decode-step median against its bound and TTFT p50/p99 per
+   tenant, and the greedy tokens must be the same in all four, request by
+   request. Then ``torch.profiler`` traces four full-batch decode steps of
+   each twin: the device's busy share, and one decode-attention partial and
+   combine kernel per attention layer a step, graph replays included. The
+   models: qwen2-7b at full width and depth (28 layers), then a trace of
+   one admit call (4 prompts of 512); rwkv6-7b at full width and depth (32
+   layers), then traces of one served admit call (one prompt of 600) with
+   the new scan kernel, the per-step one and the new one again, for the
+   scan's share of its device time (jamba likewise); jamba-v0.1-52b at
+   full width with one period (8 layers: 7 Mamba, 1 attention, 4 MoE of
+   16 experts; its 32 layers, ~104 GB in bf16, do not fit one 80 GB card).
+   Each model is freed before the next loads. The launch counters, set to
+   0 before each drain and read after it, show that every prefill and
+   decode went through the kernels (a graph's replay adds the launches its
+   capture recorded), and the decode steps through the tensor-core decode
+   kernel.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -841,14 +853,21 @@ def parity_phase(cfg, n_layers, tol, why, compute_dtype=torch.bfloat16):
     del params
 
 
-def serving_phase(cfg, kernels, *, n_req, max_new, profile=False,
+def serving_phase(cfg, kernels, *, n_req, max_new, profile_admits=False,
                   profile_scan=None):
-    """``cfg`` served to 3 WRR tenants behind ``ContinuousBatcher``; the
-    kernels' launch counts over the measured drain must be
-    ``expected_launches``. Returns those counts. After the drain,
-    ``profile`` traces decode steps and an attention admit call;
-    ``profile_scan`` = (kernel, per-step entry, kernel-name match) traces a
-    recurrent admit call with each scan kernel."""
+    """``cfg`` served to 3 WRR tenants behind ``ContinuousBatcher`` by two
+    engines on one set of seeded bf16 weights in this process: the default
+    one, whose decode step is one CUDA graph, and its eager twin
+    (``cuda_graph=False``). The eager twin first runs one step under
+    ``torch.cuda.set_sync_debug_mode("error")`` (``sync_free_step``). Then
+    the same seeded requests drain through the twins in turn, graphed,
+    eager, graphed, eager: each drain's launch counts must be
+    ``expected_launches``, and its greedy tokens those of the first drain,
+    request by request. Then four full-batch decode steps of each twin are
+    traced (``profile_decode``); ``profile_admits`` traces attention admit
+    calls and ``profile_scan`` = (kernel, per-step entry, kernel-name
+    match) a recurrent one, on the graphed twin. Prints a ``serving_ab``
+    JSON line and returns the first graphed drain's launch counts."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.monotonic()
     params = M.init_params(cfg, generator=gen, device="cuda",
@@ -857,19 +876,119 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile=False,
     w_total = sum(t.numel() * t.element_size() for t in _leaves(params))
     print(f"serving: init_params {cfg.name} ({cfg.n_layers} layers, bf16 "
           f"matrices, {w_total / 1e9:.2f} GB) {time.monotonic() - t0:.1f} s")
-    engine = S.GenerationEngine(cfg, params, slots=8, max_len=1024)
-    sched = S.SlotScheduler()
     weights = {"tenant-a": 1, "tenant-b": 1, "tenant-c": 2}
-    for t, w in weights.items():
-        sched.register_tenant(t, weight=w)
-    batcher = S.ContinuousBatcher(engine, scheduler=sched)
-    rng = np.random.default_rng(SEED)
+    label = {True: "graphed", False: "eager"}
+    twins, build_ms = {}, {}
+    for graphed in (False, True):
+        t0 = time.perf_counter()
+        engine = S.GenerationEngine(cfg, params, slots=8, max_len=1024,
+                                    cuda_graph=graphed)
+        torch.cuda.synchronize()
+        build_ms[graphed] = (time.perf_counter() - t0) * 1e3
+        assert (engine._graph is not None) == graphed
+        if not graphed:
+            sync_free_step(cfg, engine)
+        sched = S.SlotScheduler()
+        for t, w in weights.items():
+            sched.register_tenant(t, weight=w)
+        batcher = S.ContinuousBatcher(engine, scheduler=sched)
+        # warm-up: one short request (cuBLAS handles, kernel libraries)
+        batcher.submit(np.random.default_rng(SEED).integers(0, cfg.vocab, 16),
+                       max_new_tokens=2)
+        batcher.run_until_drained()
+        twins[graphed] = (engine, batcher)
+    recorded = {k.name: n for k, n in twins[True][0]._graph_launches.items()}
+    print(f"serving {cfg.name}: engine construction eager "
+          f"{build_ms[False]:.1f} ms, graphed {build_ms[True]:.1f} ms (its "
+          f"warm-up step and capture: {build_ms[True] - build_ms[False]:.1f} "
+          f"ms more); recorded launches a replay {recorded}")
 
-    # warm-up: one short request (cuBLAS handles, kernel libraries)
-    batcher.submit(rng.integers(0, cfg.vocab, 16), max_new_tokens=2)
-    batcher.run_until_drained()
-    batcher.completed.clear()
+    engine = twins[True][0]
+    w_bytes = sum(t.numel() * t.element_size()
+                  for t in _leaves(params) if t.dim() >= 2)
+    table = params["embed"]["table"]
+    w_bytes -= table.numel() * table.element_size()    # only rows gathered
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(engine.cache))
+    step_bound_ms = (w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    print(f"serving {cfg.name}: decode step bound {step_bound_ms:.2f} ms "
+          f"({(w_bytes + cache_bytes) / 1e9:.2f} GB of weights and cache per "
+          f"step at 3.35 TB/s)")
 
+    runs = []
+    for graphed in (True, False, True, False):
+        r = drain(cfg, *twins[graphed], kernels, weights, n_req, max_new)
+        r["twin"] = label[graphed]
+        runs.append(r)
+        print(f"serving {cfg.name} {r['twin']}: {n_req} requests, "
+              f"{r['tokens_total']} tokens in {r['wall_s']:.3f} s = "
+              f"{r['tokens_s']:.1f} tokens/s; decode step median "
+              f"{r['step_median_ms']:.2f} ms over {r['steps']} steps (bound "
+              f"{step_bound_ms:.2f} ms); counters {r['counters']}; launches "
+              f"{r['launches']}")
+        for t in weights:
+            p50, p99, mx = r["ttft_ms"][t]
+            print(f"serving {cfg.name} {r['twin']}: {t} (weight {weights[t]}) "
+                  f"TTFT p50 {p50:.1f} ms p99 {p99:.1f} ms max {mx:.1f} ms")
+    for r in runs[1:]:
+        assert r["tokens"] == runs[0]["tokens"], \
+            f"{cfg.name}: the {r['twin']} twin's greedy tokens differ"
+    print(f"serving {cfg.name}: greedy tokens identical, request by request, "
+          f"in all 4 drains (graphed, eager, graphed, eager)")
+    if runs[0]["launches"]["flash_decode"]:   # the served cache and q: bf16
+        cache = next(sub["k"] for sub in engine.cache.values() if "k" in sub)
+        q = torch.empty((1, 1, cfg.n_heads, cfg.head_dim), dtype=cache.dtype,
+                        device="cuda")
+        kind = fd_kernel.variant(q, cache)
+        print(f"serving {cfg.name}: decode kernel {kind}")
+        assert kind.startswith("bf16 mma.sync"), kind
+
+    busy = {label[g]: profile_decode(cfg, *twins[g], label[g])
+            for g in (True, False)}
+    if profile_admits:
+        profile_admit(cfg, engine, np.random.default_rng(SEED + 2))
+    if profile_scan:
+        profile_scan_admit(cfg, engine, np.random.default_rng(SEED + 2),
+                           *profile_scan)
+    print("serving_ab " + json.dumps({
+        "model": cfg.name, "layers": cfg.n_layers,
+        "step_bound_ms": step_bound_ms,
+        "construct_ms": {label[g]: build_ms[g] for g in (True, False)},
+        "profile": busy,
+        "drains": [{k: r[k] for k in ("twin", "tokens_s", "step_median_ms",
+                                      "ttft_ms")} for r in runs]}))
+    return runs[0]["launches"]
+
+
+def sync_free_step(cfg, engine):
+    """One eager decode step of ``engine`` under
+    ``torch.cuda.set_sync_debug_mode("error")``: an op of the step that
+    syncs with the host raises here (a CUDA graph could not hold it). It
+    calls ``_step``, the body the graph captures, on one admitted slot,
+    since ``step()`` ends in its one host sync by design; the request is
+    then drained and dropped."""
+    engine.admit_many([S.Request(0, np.arange(16, dtype=np.int32), 4)])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine._step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    while engine.active_slots():
+        engine.step()
+    print(f"serving {cfg.name}: one eager decode step under sync debug mode "
+          f"'error': no op synced")
+
+
+def drain(cfg, engine, batcher, kernels, weights, n_req, max_new):
+    """Submit ``n_req`` seeded requests (the same in every drain: 16-600
+    prompt tokens, ``max_new`` new ones, tenant-major flood over
+    ``weights``), drain them, and check the drain: every request complete,
+    each kernel's launches ``expected_launches``, host syncs = admit calls
+    + steps, no whole-cache copy. Returns its numbers and each request's
+    tokens in submission order."""
+    rng = np.random.default_rng(SEED + 1)
     step_ms = []
     step = engine.step
 
@@ -881,23 +1000,27 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile=False,
         return out
 
     engine.step = timed_step
-    before = engine.counters()
-    uids = {}
-    for i in range(n_req):
-        tenant = list(weights)[i * len(weights) // n_req]   # tenant-major flood
-        n = int(rng.integers(16, 601))
-        uids[batcher.submit(rng.integers(0, cfg.vocab, n),
-                            max_new_tokens=max_new, tenant=tenant)] = tenant
-    for k in kernels:
-        k.launches = 0
-    t0 = time.monotonic()
-    batcher.run_until_drained()
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {k.name: k.launches for k in kernels}
+    try:
+        batcher.completed.clear()
+        before = engine.counters()
+        uids = {}
+        for i in range(n_req):
+            tenant = list(weights)[i * len(weights) // n_req]
+            n = int(rng.integers(16, 601))
+            uids[batcher.submit(rng.integers(0, cfg.vocab, n),
+                                max_new_tokens=max_new,
+                                tenant=tenant)] = tenant
+        for k in kernels:
+            k.launches = 0
+        t0 = time.monotonic()
+        batcher.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {k.name: k.launches for k in kernels}
+    finally:
+        del engine.step          # the class's method again
     after = engine.counters()
     d = {key: after[key] - before[key] for key in after}
-
     done = batcher.completed
     assert len(done) == n_req and set(done) == set(uids), "requests lost"
     for uid, r in done.items():
@@ -905,44 +1028,21 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile=False,
         assert all(0 <= t < cfg.vocab for t in r.tokens)
     want = expected_launches(cfg, d)
     assert launches == want, (launches, want, d)
-    if want["flash_decode"]:      # the served cache and q dtype: bf16
-        cache = next(sub["k"] for sub in engine.cache.values() if "k" in sub)
-        q = torch.empty((1, 1, cfg.n_heads, cfg.head_dim), dtype=cache.dtype,
-                        device="cuda")
-        kind = fd_kernel.variant(q, cache)
-        print(f"serving {cfg.name}: decode kernel {kind}")
-        assert kind.startswith("bf16 mma.sync"), kind
     assert all(launches[k] > 0 for k, n in want.items() if n), launches
     assert d["host_syncs"] == d["admit_calls"] + d["steps"], d
     assert after["full_cache_copies"] == 0
-
-    w_bytes = sum(t.numel() * t.element_size()
-                  for t in _leaves(params) if t.dim() >= 2)
-    table = params["embed"]["table"]
-    w_bytes -= table.numel() * table.element_size()    # only rows gathered
-    cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(engine.cache))
-    step_bound_ms = (w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
-    tokens = sum(len(r.tokens) for r in done.values())
-    print(f"serving {cfg.name}: {n_req} requests, {tokens} tokens in "
-          f"{wall:.3f} s = {tokens / wall:.1f} tokens/s; counters {d}; "
-          f"launches {launches}")
+    ttft = {}
     for t in weights:
-        ttft = sorted((r.first_token_at - r.submitted_at) * 1e3
-                      for r in done.values() if r.tenant == t)
-        print(f"serving {cfg.name}: {t} (weight {weights[t]}) n={len(ttft)} "
-              f"TTFT p50 {np.percentile(ttft, 50):.1f} ms p99 "
-              f"{np.percentile(ttft, 99):.1f} ms max {ttft[-1]:.1f} ms")
-    print(f"serving {cfg.name}: decode step median {np.median(step_ms):.2f} ms "
-          f"over {len(step_ms)} steps; bound {step_bound_ms:.2f} ms "
-          f"({(w_bytes + cache_bytes) / 1e9:.2f} GB of weights and cache per "
-          f"step at 3.35 TB/s)")
-    if profile:
-        profile_decode(cfg, batcher, engine, rng)
-        profile_admit(cfg, engine, rng)
-    if profile_scan:
-        profile_scan_admit(cfg, engine, rng, *profile_scan)
-    engine.step = step          # break the engine <-> closure cycle
-    return launches
+        ms = sorted((r.first_token_at - r.submitted_at) * 1e3
+                    for r in done.values() if r.tenant == t)
+        ttft[t] = (float(np.percentile(ms, 50)), float(np.percentile(ms, 99)),
+                   ms[-1])
+    tokens = [done[uid].tokens for uid in uids]
+    n_tok = sum(len(t) for t in tokens)
+    return {"tokens": tokens, "tokens_total": n_tok, "wall_s": wall,
+            "tokens_s": n_tok / wall, "steps": len(step_ms),
+            "step_median_ms": float(np.median(step_ms)), "counters": d,
+            "launches": launches, "ttft_ms": ttft}
 
 
 def expected_launches(cfg, counters):
@@ -965,10 +1065,14 @@ def free_card():
     torch.cuda.empty_cache()
 
 
-def profile_decode(cfg, batcher, engine, rng, n_steps=4):
-    """Device busy share and kernel mix of full-batch decode steps, from a
-    ``torch.profiler`` trace (run after the measured window)."""
+def profile_decode(cfg, engine, batcher, label, n_steps=4):
+    """Device busy share and kernel mix of ``n_steps`` full-batch decode
+    steps, from a ``torch.profiler`` trace (run after the measured drains).
+    The trace lists a graph's kernels one by one, so it checks the launch
+    accounting on its own: each step holds one decode-attention partial
+    and one combine kernel per attention layer. Returns the numbers."""
     from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(SEED + 3)
     for _ in range(engine.slots):
         batcher.submit(rng.integers(0, cfg.vocab, 64), max_new_tokens=16)
     batcher.pump()                       # admission + first step, untraced
@@ -986,21 +1090,29 @@ def profile_decode(cfg, batcher, engine, rng, n_steps=4):
     per_name = device_ms_by_name(prof)
     busy = sum(t for _, t in per_name.values())
     count = sum(n for n, _ in per_name.values())
-    print(f"profile: {n_steps} decode steps ({engine.slots} active slots) "
-          f"wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
-          f"({100 * busy / wall_ms:.1f}%), {count / n_steps:.0f} kernels "
-          "per step")
+    assert busy > 0, "the profiler recorded no device time"
+    print(f"profile {cfg.name} {label}: {n_steps} decode steps "
+          f"({engine.slots} active slots) wall {wall_ms:.2f} ms, device busy "
+          f"{busy:.2f} ms ({100 * busy / wall_ms:.1f}%), "
+          f"{count / n_steps:.0f} kernels per step")
+    attn_layers = cfg.n_blocks * sum(cfg.layer_pattern.count(k) for k in "gl")
     attn = {k: v for k, v in per_name.items() if "decode_" in k}
+    combines = sum(n for k, (n, _) in attn.items() if "decode_combine" in k)
+    partials = sum(n for k, (n, _) in attn.items()
+                   if "decode_mma" in k or "decode_partial" in k)
+    assert combines == partials == attn_layers * n_steps, \
+        (label, combines, partials, attn_layers, n_steps)
     attn_ms = sum(t for _, t in attn.values())
-    print(f"profile: decode attention {attn_ms / n_steps:.3f} ms/step in "
-          f"{sum(n for n, _ in attn.values()) // n_steps} launches/step "
-          f"= {100 * attn_ms / busy:.1f}% of device time")
-    for name, (n, t) in attn.items():
-        print(f"profile:   decode attention {t / n:.5f} ms a launch, {n // n_steps} "
-              f"a step: {name[:90]}")
-    for name, (n, t) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:8]:
-        print(f"profile:   {t / n_steps:8.3f} ms/step  {n // n_steps:5d} "
-              f"launches/step  {name[:90]}")
+    print(f"profile {cfg.name} {label}: decode attention "
+          f"{combines // n_steps} launches/step (= {attn_layers} attention "
+          f"layers), {attn_ms / n_steps:.3f} ms/step = "
+          f"{100 * attn_ms / busy:.1f}% of device time")
+    for name, (n, t) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:6]:
+        print(f"profile {cfg.name} {label}:   {t / n_steps:8.3f} ms/step  "
+              f"{n // n_steps:5d} launches/step  {name[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms,
+            "kernels_per_step": count / n_steps,
+            "decode_attention_launches_per_step": combines / n_steps}
 
 
 def device_ms_by_name(prof):
@@ -1147,8 +1259,8 @@ def main() -> int:
 
     by_path = {"grouped_gemm op, dropless MoE experts at "
                + ", ".join(MOE_CONFIGS): gg_path}
-    by_path["qwen2-7b"] = serving_phase(qwen2, kernels,
-                                        n_req=24, max_new=32, profile=True)
+    by_path["qwen2-7b"] = serving_phase(qwen2, kernels, n_req=24,
+                                        max_new=32, profile_admits=True)
     free_card()
     by_path["rwkv6-7b"] = serving_phase(
         rwkv6, kernels, n_req=24, max_new=32,

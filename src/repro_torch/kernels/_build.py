@@ -6,8 +6,9 @@ into a shared library on first use, and is cached in ``kernels/_build/``
 (ignored by git) under the hash of its source, of every header in
 ``kernels/csrc/`` (the shared Hopper primitives, ``hopper.cuh``, on the
 include path) and of the flags, so editing a header rebuilds every kernel.
-This cache is the package's only global state. Nothing here runs at import
-time: the CPU test machine has no ``nvcc``.
+This cache, and the per-thread launch recorder of ``record_launches``, are
+the package's only global state. Nothing here runs at import time: the CPU
+test machine has no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -18,8 +19,9 @@ import os
 import shutil
 import subprocess
 import threading
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Iterable, Optional, Sequence
+from typing import Dict, Iterable, Iterator, Optional, Sequence
 
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 INCLUDE_DIR = Path(__file__).resolve().parent / "csrc"     # shared headers
@@ -37,11 +39,29 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+_RECORDER = threading.local()     # .counts: {CudaKernel: n} while recording
+
+
+@contextmanager
+def record_launches() -> Iterator[Dict["CudaKernel", int]]:
+    """Divert this thread's launch counts into the yielded dict instead of
+    each kernel's ``launches``: a launch recorded into a CUDA graph has not
+    run. Whoever replays the graph adds the dict with ``add_launches`` at
+    each replay. Other threads keep counting as before."""
+    counts: Dict[CudaKernel, int] = {}
+    _RECORDER.counts = counts
+    try:
+        yield counts
+    finally:
+        _RECORDER.counts = None
+
+
 class CudaKernel:
     """One ``.cu`` source, its shared library and one C entry point.
 
-    ``launches`` counts the wrapper's launches of this kernel; callers set
-    it to 0 before a run and read it after.
+    ``launches`` counts the launches of this kernel that ran: the wrapper
+    adds one at each launch (``count_launch``), a graph's replay the ones it
+    recorded. Callers set it to 0 before a run and read it after.
     """
 
     def __init__(self, name: str, source: Path, symbol: str,
@@ -56,6 +76,7 @@ class CudaKernel:
         self._lib = None
         self._errstr = None
         self._lock = threading.Lock()
+        self._count_lock = threading.Lock()
 
     @property
     def library(self) -> Path:
@@ -112,6 +133,19 @@ class CudaKernel:
         f.argtypes = list(argtypes)
         f.restype = ctypes.c_int
         return f
+
+    def count_launch(self) -> None:
+        """One launch by the wrapper, counted where ``record_launches``
+        records in this thread, else in ``launches``."""
+        counts = getattr(_RECORDER, "counts", None)
+        if counts is not None:
+            counts[self] = counts.get(self, 0) + 1
+        else:
+            self.add_launches(1)
+
+    def add_launches(self, n: int) -> None:
+        with self._count_lock:      # drive threads of several engines
+            self.launches += n
 
     def check(self, rc: int) -> None:
         if rc != 0:

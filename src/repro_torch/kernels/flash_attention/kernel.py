@@ -67,7 +67,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:
         return out
     fn = KERNEL.fn()
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, S, T, H, KV, D, DTYPES[q.dtype], int(causal), int(window),
             float(softcap), float(scale), int(q_offset), stream_ptr(q))

@@ -101,7 +101,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     m = torch.empty((B, KV, nsplit, G), **f32)
     l = torch.empty((B, KV, nsplit, G), **f32)
     fn = KERNEL.fn()
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lengths.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
             out.data_ptr(), B, L, H, KV, D, DTYPES[q.dtype],

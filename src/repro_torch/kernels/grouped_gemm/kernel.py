@@ -70,7 +70,7 @@ def grouped_gemm(x: torch.Tensor, group_sizes: torch.Tensor,
         return out
     sched = torch.empty(2 * (E + 2), dtype=torch.int32, device=x.device)
     fn = KERNEL.fn()
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     rc = fn(x.data_ptr(), group_sizes.data_ptr(),
             int(group_sizes.dtype == torch.int64), W.data_ptr(),
             out.data_ptr(), sched.data_ptr(), T, D, F, E, DTYPES[x.dtype],

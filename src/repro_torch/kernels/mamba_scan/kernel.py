@@ -111,7 +111,7 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return y, h_out
     lanes = plan(Bt, S, DI, N, sm_count(x.device.index))["lanes"]
     fn = KERNEL.fn()
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     rc = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), D.data_ptr(),
             None if state is None else state.data_ptr(), y.data_ptr(),

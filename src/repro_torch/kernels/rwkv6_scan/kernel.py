@@ -120,7 +120,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return out, s_out
     vsplit = plan(r.dtype, B, S, H, D, sm_count(r.device.index))["vsplit"]
     fn = KERNEL.fn()
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     rc = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
             u.data_ptr(), None if state is None else state.data_ptr(),
             out.data_ptr(), s_out.data_ptr(), B, S, H, D, DTYPES[r.dtype],

@@ -48,14 +48,21 @@ def _gates(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig
 def _route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
     """Stable sort of the T*K (token, expert) pairs by expert. Returns
     (expert, token, gate, rank within the expert, kept) in sorted order,
-    with ``kept = rank < capacity``."""
+    with ``kept = rank < capacity``.
+
+    No op reads a value back to the host, so a decode step can be
+    captured in a CUDA graph: the per-expert counts are a scatter-add into
+    E zeros, the reference's ``jnp.bincount(e_flat, length=E)``
+    (``torch.bincount`` on the card reads the largest index back to size
+    its output)."""
     T = x.shape[0]
     gates, eidx = _gates(x, router, cfg)
     e_flat = eidx.reshape(-1)
     t_flat = torch.arange(T, device=x.device).repeat_interleave(cfg.top_k)
     order = torch.sort(e_flat, stable=True).indices
     e_s, t_s, g_s = e_flat[order], t_flat[order], gates.reshape(-1)[order]
-    counts = torch.bincount(e_flat, minlength=cfg.n_experts)
+    counts = torch.zeros(cfg.n_experts, dtype=e_flat.dtype, device=x.device)
+    counts.scatter_add_(0, e_flat, torch.ones_like(e_flat))
     offsets = counts.cumsum(0) - counts
     rank = torch.arange(e_s.shape[0], device=x.device) - offsets[e_s]
     return e_s, t_s, g_s, rank, rank < _capacity(T, cfg)

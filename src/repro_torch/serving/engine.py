@@ -15,7 +15,14 @@ for attention layers, fp32 states for recurrent ones):
   their state, so those bucket by exact length.
 - **fused decode** — one step over all slots that advances every active
   slot and computes done-flags on the device, so the host syncs ONCE per
-  step instead of once per slot.
+  step instead of once per slot. On the card the step is ONE CUDA graph
+  (the port of the reference's ``_compiled``, a ``jax.jit`` with donated
+  buffers): captured once per engine in ``__init__`` and replayed by every
+  ``step()``. The graph binds this engine's cache and slot state, so both
+  are static buffers that every call writes in place. The step's body is
+  one function, ``_step``, run eagerly on the CPU (where the tests cover
+  it) and captured on the card; ``cuda_graph=False`` asks for the eager
+  step on the card.
 
 Slot state (lengths, token budgets, active mask, last token per slot) lives
 on the device between calls; the host keeps only the request objects and a
@@ -36,6 +43,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..kernels._build import record_launches
 from ..models import decode_step, init_cache, prefill
 from ..models.config import ModelConfig
 from .scheduler import SlotScheduler
@@ -67,17 +75,26 @@ class GenerationEngine:
 
     NOT thread-safe by itself: exactly one drive thread may call
     ``admit_many``/``step``; put a :class:`ContinuousBatcher` in front for
-    concurrent submitters. ``device=None`` means the card; pass
+    concurrent submitters. Engines driven by different threads may capture
+    and step at the same time. ``device=None`` means the card; pass
     ``device="cpu"`` (with CPU parameters) to run on the CPU.
+    ``cuda_graph`` (default: on the card, yes) replays the decode step as
+    one captured CUDA graph; ``False`` runs it eagerly, and ``True`` off
+    the card raises. A capture that fails raises too.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
                  max_len: int = 512, compute_dtype=torch.bfloat16,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 cuda_graph: Optional[bool] = None):
         self.device = resolve_device(device)
         table = params["embed"]["table"]
         if not _same_device(table, self.device):
             raise ValueError(f"parameters are on {table.device}, the engine "
+                             f"on {self.device}")
+        on_card = self.device.type == "cuda"
+        if cuda_graph and not on_card:
+            raise ValueError(f"a CUDA graph needs the card; this engine is "
                              f"on {self.device}")
         self.cfg = cfg
         self.params = params
@@ -92,6 +109,7 @@ class GenerationEngine:
         self._active = torch.zeros((slots,), dtype=torch.bool,
                                    device=self.device)
         self._last = torch.zeros((slots, 1), **i32)
+        self._out = torch.zeros((2, slots), **i32)     # a step's tokens, done
         # host mirrors (authoritative for slot occupancy)
         self.lengths = np.zeros((slots,), np.int32)
         self.slot_req: List[Optional[Request]] = [None] * slots
@@ -103,6 +121,10 @@ class GenerationEngine:
         self.admitted = 0               # requests admitted
         self.full_cache_copies = 0      # whole-cache copies: stays 0
         self.host_syncs = 0             # device->host transfers
+        self._graph: Optional[torch.cuda.CUDAGraph] = None
+        self._graph_launches: Dict[Any, int] = {}
+        if cuda_graph is not False and on_card:
+            self._capture()
 
     # -- slots -------------------------------------------------------------
 
@@ -149,23 +171,51 @@ class GenerationEngine:
         """One decode step over every slot; inactive slots are masked out.
 
         Inactive slots still flow through the batched matmuls (their K/V
-        writes land at stale positions inside the cache, are masked by
-        ``lengths`` and are overwritten at the next admission), which keeps
-        the step shape static. Returns [2, slots] int32: tokens, done."""
+        and state writes land in the cache, are masked by ``lengths`` and
+        are overwritten at the next admission), which keeps the step shape
+        static. Every result is written in place into the engine's static
+        buffers, which is what lets a CUDA graph replay this body. Returns
+        ``self._out``, [2, slots] int32: tokens, done."""
         call_lengths = self._slot_lengths + 1     # new token position + 1
         logits, _, _ = decode_step(self.params, self.cfg, self._last,
                                    self.cache, call_lengths,
                                    compute_dtype=self.compute_dtype)
         toks = logits[:, 0, :self.cfg.vocab].argmax(dim=-1).to(torch.int32)
         active = self._active
-        self._slot_lengths = torch.where(active, self._slot_lengths + 1,
-                                         self._slot_lengths)
-        self._budget = torch.where(active, self._budget - 1, self._budget)
-        self._last = torch.where(active[:, None], toks[:, None], self._last)
+        self._slot_lengths.copy_(torch.where(active, call_lengths,
+                                             self._slot_lengths))
+        self._budget.copy_(torch.where(active, self._budget - 1,
+                                       self._budget))
+        self._last.copy_(torch.where(active[:, None], toks[:, None],
+                                     self._last))
         done = active & ((self._budget <= 0)
                          | (self._slot_lengths >= self.max_len - 1))
-        self._active = active & ~done
-        return torch.stack([toks, done.to(torch.int32)])
+        self._active.copy_(active & ~done)
+        self._out[0].copy_(toks)
+        self._out[1].copy_(done)
+        return self._out
+
+    def _capture(self) -> None:
+        """Capture ``_step`` as this engine's CUDA graph, while every slot
+        is inactive. A warm-up step on the capture stream first creates the
+        cuBLAS handles and loads every kernel library the step launches;
+        with no active slot it changes no slot's length or budget.
+
+        ``capture_error_mode="thread_local"`` leaves other threads free to
+        allocate and sync while this one captures (another engine's drive
+        thread). The wrappers' launch counts are recorded, not counted, and
+        ``step()`` adds them at every replay."""
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self._step()
+        graph = torch.cuda.CUDAGraph()
+        with record_launches() as launches:
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self._step()
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+        self._graph, self._graph_launches = graph, launches
 
     # -- admission ---------------------------------------------------------
 
@@ -237,7 +287,14 @@ class GenerationEngine:
         One host sync per step regardless of slot count."""
         if not any(r is not None for r in self.slot_req):
             return []
-        toks_np, done_np = self._step().cpu().numpy()
+        if self._graph is None:
+            out = self._step()
+        else:
+            self._graph.replay()
+            for kernel, n in self._graph_launches.items():
+                kernel.add_launches(n)
+            out = self._out
+        toks_np, done_np = out.cpu().numpy()
         self.host_syncs += 1
         self.steps += 1
         now = time.monotonic()
