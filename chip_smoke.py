@@ -60,7 +60,19 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    0 before each drain and read after it, show that every prefill and
    decode went through the kernels (a graph's replay adds the launches its
    capture recorded), and the decode steps through the tensor-core decode
-   kernel.
+   kernel;
+6. fleet, after qwen2-7b's serving phase, on its weights: the same
+   requests through the control plane, tenants of a live
+   ``VirtualClusterFramework`` served by a ``ServingFleet`` of graphed
+   qwen2-7b replicas on the one card (WorkUnits placed by the
+   SuperScheduler, engines built by the node agents' providers on the
+   executor's pool threads). Lone, fleet, lone, fleet drains, each fleet
+   drain a 0 -> 1 resize under the backlog, must give the lone engine's
+   tokens, admit calls and steps; then 1 -> 2 -> 3 -> 1 replicas under
+   load must finish every request and retire 2 replicas, every unit
+   reaching ``Ready``; each fleet run's launches must be the sum over its
+   replicas. Lines ``fleet qwen2-7b ...`` and ``fleet_ab {...}``
+   (``fleet_phase``).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -72,6 +84,7 @@ import gc
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -84,6 +97,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch import models as M
 from repro_torch import serving as S
 from repro_torch.configs import get_config
+from repro_torch.core import VirtualClusterFramework
 from repro_torch.kernels._build import build_all
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ops import decode_mha, mha
@@ -867,7 +881,8 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile_admits=False,
     traced (``profile_decode``); ``profile_admits`` traces attention admit
     calls and ``profile_scan`` = (kernel, per-step entry, kernel-name
     match) a recurrent one, on the graphed twin. Prints a ``serving_ab``
-    JSON line and returns the first graphed drain's launch counts."""
+    JSON line and returns the first graphed drain's launch counts, with the
+    weights and the graphed engine (the fleet phase's lone twin)."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.monotonic()
     params = M.init_params(cfg, generator=gen, device="cuda",
@@ -893,8 +908,7 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile_admits=False,
             sched.register_tenant(t, weight=w)
         batcher = S.ContinuousBatcher(engine, scheduler=sched)
         # warm-up: one short request (cuBLAS handles, kernel libraries)
-        batcher.submit(np.random.default_rng(SEED).integers(0, cfg.vocab, 16),
-                       max_new_tokens=2)
+        batcher.submit(warmup_prompt(cfg), max_new_tokens=2)
         batcher.run_until_drained()
         twins[graphed] = (engine, batcher)
     recorded = {k.name: n for k, n in twins[True][0]._graph_launches.items()}
@@ -957,7 +971,7 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile_admits=False,
         "profile": busy,
         "drains": [{k: r[k] for k in ("twin", "tokens_s", "step_median_ms",
                                       "ttft_ms")} for r in runs]}))
-    return runs[0]["launches"]
+    return runs[0]["launches"], (params, engine)
 
 
 def sync_free_step(cfg, engine):
@@ -988,7 +1002,6 @@ def drain(cfg, engine, batcher, kernels, weights, n_req, max_new):
     each kernel's launches ``expected_launches``, host syncs = admit calls
     + steps, no whole-cache copy. Returns its numbers and each request's
     tokens in submission order."""
-    rng = np.random.default_rng(SEED + 1)
     step_ms = []
     step = engine.step
 
@@ -1003,13 +1016,9 @@ def drain(cfg, engine, batcher, kernels, weights, n_req, max_new):
     try:
         batcher.completed.clear()
         before = engine.counters()
-        uids = {}
-        for i in range(n_req):
-            tenant = list(weights)[i * len(weights) // n_req]
-            n = int(rng.integers(16, 601))
-            uids[batcher.submit(rng.integers(0, cfg.vocab, n),
-                                max_new_tokens=max_new,
-                                tenant=tenant)] = tenant
+        uids = {batcher.submit(prompt, max_new_tokens=max_new,
+                               tenant=tenant): tenant
+                for tenant, prompt in drain_requests(cfg, weights, n_req)}
         for k in kernels:
             k.launches = 0
         t0 = time.monotonic()
@@ -1031,18 +1040,49 @@ def drain(cfg, engine, batcher, kernels, weights, n_req, max_new):
     assert all(launches[k] > 0 for k, n in want.items() if n), launches
     assert d["host_syncs"] == d["admit_calls"] + d["steps"], d
     assert after["full_cache_copies"] == 0
-    ttft = {}
-    for t in weights:
-        ms = sorted((r.first_token_at - r.submitted_at) * 1e3
-                    for r in done.values() if r.tenant == t)
-        ttft[t] = (float(np.percentile(ms, 50)), float(np.percentile(ms, 99)),
-                   ms[-1])
     tokens = [done[uid].tokens for uid in uids]
     n_tok = sum(len(t) for t in tokens)
     return {"tokens": tokens, "tokens_total": n_tok, "wall_s": wall,
             "tokens_s": n_tok / wall, "steps": len(step_ms),
-            "step_median_ms": float(np.median(step_ms)), "counters": d,
-            "launches": launches, "ttft_ms": ttft}
+            "step_median_ms": float(np.median(step_ms)),
+            "step_total_ms": float(np.sum(step_ms)), "counters": d,
+            "launches": launches, "ttft_ms": ttft_ms(done.values(), weights),
+            "admits": admit_stats(done.values())}
+
+
+def drain_requests(cfg, weights, n_req):
+    """The drains' ``n_req`` seeded (tenant, prompt) pairs, the same in every
+    drain: 16-600 prompt tokens, a tenant-major flood over ``weights``."""
+    rng = np.random.default_rng(SEED + 1)
+    out = []
+    for i in range(n_req):
+        tenant = list(weights)[i * len(weights) // n_req]
+        n = int(rng.integers(16, 601))
+        out.append((tenant, rng.integers(0, cfg.vocab, n)))
+    return out
+
+
+def admit_stats(done):
+    """The admit calls that served ``done``: how many, and their host wall
+    times (launch to the call's host sync; one call per length bucket),
+    summed and median, in ms."""
+    ms = sorted({q.admit_started_at: (q.admitted_at - q.admit_started_at)
+                 * 1e3 for q in done}.values())
+    return {"calls": len(ms), "total_ms": float(np.sum(ms)),
+            "median_ms": float(np.median(ms))}
+
+
+def ttft_ms(done, weights, since=None):
+    """{tenant: (p50, p99, max)} of the time to first token in ms, from each
+    request's submission, or from ``since`` (a ``time.monotonic()``)."""
+    out = {}
+    for t in weights:
+        ms = sorted((r.first_token_at - (r.submitted_at if since is None
+                                         else since)) * 1e3
+                    for r in done if r.tenant == t)
+        out[t] = (float(np.percentile(ms, 50)), float(np.percentile(ms, 99)),
+                  ms[-1])
+    return out
 
 
 def expected_launches(cfg, counters):
@@ -1058,6 +1098,402 @@ def expected_launches(cfg, counters):
     return {"flash_attention": attn * admits, "flash_decode": attn * steps,
             "rwkv6_scan": layers["r"] * admits,
             "mamba_scan": layers["m"] * admits, "grouped_gemm": 0}
+
+
+def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
+    """``cfg`` served through the control plane: three tenants of a live
+    ``VirtualClusterFramework`` (2 nodes), registered from their control
+    planes, served by a ``ServingFleet`` whose replicas are graphed engines
+    (8 slots, max_len 1024) on ``serving_phase``'s weights, one card for
+    all. Each replica is an ``engine-<i>`` WorkUnit that the SuperScheduler
+    places and a node agent starts through its provider: the factory, and
+    so the decode graph's capture, runs on a pool thread of the framework's
+    executor. ``lone``, ``serving_phase``'s graphed engine, is the twin.
+
+    1. The lone engine drains ``drain``'s requests before the framework
+       starts (what the framework's threads cost a lone engine).
+    2. A warm-up request through a replica spawned for it, retired after
+       (the lone engine served the same one in ``serving_phase``).
+    3. Lone, fleet, lone, fleet: the lone twin from a fresh
+       ``SlotScheduler`` with the same tenants, the fleet by a 0 -> 1
+       resize after the requests are submitted, so the replica's first
+       ``take`` sees them all as ``pump`` does; the replica is retired
+       after. Gated: every drain's tokens, request by request, and its
+       admit calls and steps equal the first lone drain's.
+    4. 1 -> 2 replicas and the requests drained by both, once at the
+       interpreter's switch interval and once at 0.5 ms (how much the
+       replicas' drive threads wait for each other's interpreter lock);
+       the requests again, with 3 replicas asked for while they are in
+       flight; back to 1 once they are done. Gated: every request
+       completes, 2 replicas retire, only ``engine-0`` is left. Counted,
+       not gated: the requests whose tokens equal the lone drains'
+       (admission groups differ, and a bf16 product over another number
+       of rows may differ by an ulp).
+
+    Every spawned unit must reach ``Ready`` (a factory that raises leaves
+    its unit ``Failed``), an exception on any thread fails the phase, and
+    each fleet run's launches must equal the sum over the replicas of
+    ``expected_launches`` plus each new replica's capture warm-up step.
+    Prints each drain, each spawn (resize to ``Ready``, the time the
+    factory held its pool thread, the allocator's reserved memory around
+    it), each replica's counters, the card's allocated memory and a
+    ``fleet_ab`` JSON line; returns the fleet runs' launch counts, summed.
+    """
+    t_phase = time.monotonic()
+    weights = {"tenant-a": 1, "tenant-b": 1, "tenant-c": 2}
+    reqs = drain_requests(cfg, weights, n_req)
+    mem = {"before the fleet": torch.cuda.memory_allocated()}
+    builds, step_ms, errors = [], {}, []
+
+    def factory():
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        engine = S.GenerationEngine(cfg, params, slots=8, max_len=1024)
+        held_ms = (time.perf_counter() - t0) * 1e3
+        times = step_ms[engine] = []
+        step = engine.step
+
+        def timed_step():    # each step ends in its one host sync
+            n, t = engine.steps, time.perf_counter()
+            out = step()
+            if engine.steps > n:
+                times.append((time.perf_counter() - t) * 1e3)
+            return out
+
+        engine.step = timed_step
+        builds.append({"engine": engine, "held_ms": held_ms,
+                       "thread": threading.current_thread().name,
+                       "reserved_gb": [reserved / 1e9,
+                                       torch.cuda.memory_reserved() / 1e9]})
+        return engine
+
+    hook = threading.excepthook
+
+    def record(args):
+        errors.append(f"{args.thread.name}: {args.exc_type.__name__}: "
+                      f"{args.exc_value}")
+        hook(args)
+
+    fleet = S.ServingFleet(factory, replicas=0)
+    fw = VirtualClusterFramework(num_nodes=2, scan_interval=0.0,
+                                 heartbeat_interval=3600)
+    fleet.attach(fw)
+    spawns, labels, fleet_launches, runs = [], {}, {}, []
+
+    def resize(n):
+        """Resize, wait for the fleet to settle, note each new unit's
+        time to ``Ready`` and the factory that built its engine."""
+        for name, ms in fleet_resize(fw, fleet, n, errors).items():
+            engine = fleet.replica(f"{S.SERVING_NS}/{name}").engine
+            build = next(b for b in builds if b["engine"] is engine)
+            labels[engine] = f"{name} (spawn {len(spawns) + 1})"
+            spawns.append({"unit": labels[engine], "resize_to_ready_ms": ms,
+                           "factory_ms": build["held_ms"],
+                           "thread": build["thread"],
+                           "reserved_gb": build["reserved_gb"]})
+            print(f"fleet {cfg.name}: spawn {labels[engine]}: resize to "
+                  f"Ready {ms:.1f} ms; the factory (engine construction and "
+                  f"graph capture) held pool thread {build['thread']} for "
+                  f"{build['held_ms']:.1f} ms; memory reserved "
+                  f"{build['reserved_gb'][0]:.3f} -> "
+                  f"{build['reserved_gb'][1]:.3f} GB")
+            assert build["thread"].startswith(fw.executor.name), build
+
+    def fleet_run(run):
+        """``run()`` with every kernel's count set to 0 before and read
+        after: the counts must be the sum over the replicas."""
+        before = {b["engine"]: b["engine"].counters() for b in builds}
+        for k in kernels:
+            k.launches = 0
+        out = run()
+        torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in kernels}
+        want = dict.fromkeys(launches, 0)
+        for b in builds:
+            engine = b["engine"]
+            c0 = before.get(engine, dict.fromkeys(engine.counters(), 0))
+            d = {key: v - c0[key] for key, v in engine.counters().items()}
+            assert d["host_syncs"] == d["admit_calls"] + d["steps"], d
+            assert d["full_cache_copies"] == 0, d
+            for name, n in expected_launches(cfg, d).items():
+                want[name] += n
+            if engine not in before:     # its capture's warm-up step ran
+                for k, n in engine._graph_launches.items():
+                    want[k.name] += n
+        assert launches == want, (launches, want)
+        for name, n in launches.items():
+            fleet_launches[name] = fleet_launches.get(name, 0) + n
+        return out, launches
+
+    def summary(side, done, engine=None):
+        """A fleet drain's numbers; tokens/s from its first take."""
+        assert all(q.done and len(q.tokens) == max_new for q in done)
+        first = min(q.dequeued_at for q in done)
+        wall = max(q.finished_at for q in done) - first
+        tokens = [q.tokens for q in done]
+        n_tok = sum(len(t) for t in tokens)
+        r = {"side": side, "tokens": tokens, "tokens_total": n_tok,
+             "wall_s": wall, "tokens_s": n_tok / wall,
+             "ttft_ms": ttft_ms(done, weights),
+             "ttft_from_first_take_ms": ttft_ms(done, weights, since=first),
+             "admits": admit_stats(done)}
+        if runs:
+            r["same_tokens_as_lone"] = sum(
+                t == w for t, w in zip(tokens, runs[0]["tokens"]))
+        if engine is not None:
+            r.update(steps=len(step_ms[engine]), counters=engine.counters(),
+                     step_median_ms=float(np.median(step_ms[engine])),
+                     step_total_ms=float(np.sum(step_ms[engine])))
+        return r
+
+    def report(r):
+        line = (f"fleet {cfg.name} {r['side']}: {n_req} requests, "
+                f"{r['tokens_total']} tokens in {r['wall_s']:.3f} s = "
+                f"{r['tokens_s']:.1f} tokens/s")
+        if "ttft_from_first_take_ms" in r:
+            line += " (from the first take)"
+        if "steps" in r:
+            line += (f"; decode step median {r['step_median_ms']:.2f} ms "
+                     f"over {r['steps']} steps (in all "
+                     f"{r['step_total_ms']:.1f} ms); counters {r['counters']}")
+        for label, (n, med, total) in r.get("replica_steps", {}).items():
+            line += (f"; {label}: {n} steps, median {med:.2f} ms, in all "
+                     f"{total:.1f} ms")
+        a = r["admits"]
+        line += (f"; {a['calls']} admit calls, median {a['median_ms']:.1f} "
+                 f"ms, in all {a['total_ms']:.1f} ms")
+        if "launches" in r:
+            line += f"; launches {r['launches']}"
+        if "same_tokens_as_lone" in r:
+            line += (f"; {r['same_tokens_as_lone']} of {n_req} requests' "
+                     f"tokens equal the lone engine's")
+        print(line)
+        for t in weights:
+            p50, p99, mx = r["ttft_ms"][t]
+            line = (f"fleet {cfg.name} {r['side']}: {t} (weight "
+                    f"{weights[t]}) TTFT p50 {p50:.1f} ms p99 {p99:.1f} ms "
+                    f"max {mx:.1f} ms")
+            if "ttft_from_first_take_ms" in r:
+                p50, p99, mx = r["ttft_from_first_take_ms"][t]
+                line += (f"; from the first take p50 {p50:.1f} p99 "
+                         f"{p99:.1f} max {mx:.1f}")
+            print(line)
+
+    def lone_drain(side):
+        sched = S.SlotScheduler()
+        for t, w in weights.items():
+            sched.register_tenant(t, weight=w)
+        r = drain(cfg, lone, S.ContinuousBatcher(lone, scheduler=sched),
+                  kernels, weights, n_req, max_new)
+        r["side"] = side
+        report(r)
+        runs.append(r)
+
+    def fleet_drain():
+        """The requests, then a 0 -> 1 resize."""
+        assert fleet.live_replicas() == 0
+        fleet.pop_completed()
+        uids = [fleet.submit(t, p, max_new_tokens=max_new) for t, p in reqs]
+        resize(1)
+        done = fleet_wait(fleet, len(uids), errors)
+        return [done[u] for u in uids], builds[-1]["engine"]
+
+    def under_load():
+        """1 -> 2 replicas; the requests drained by both, at the default
+        and at a 0.5 ms switch interval; again with a third replica asked
+        for while they are in flight; back to 1."""
+        out = []
+        resize(2)
+        for label, interval in (("2 replicas", None),
+                                ("2 replicas, switch interval 0.5 ms", 5e-4),
+                                ("2 -> 3 replicas", None)):
+            fleet.pop_completed()
+            mark = {e: len(t) for e, t in step_ms.items()}
+            default = sys.getswitchinterval()
+            sys.setswitchinterval(interval or default)
+            try:
+                uids = [fleet.submit(t, p, max_new_tokens=max_new)
+                        for t, p in reqs]
+                if label.endswith("3 replicas"):
+                    wait_until(lambda: any(b["engine"].active_slots()
+                                           for b in builds), errors)
+                    resize(3)
+                done = fleet_wait(fleet, len(uids), errors)
+            finally:
+                sys.setswitchinterval(default)
+            mem[f"{fleet.live_replicas()} replicas"] = \
+                torch.cuda.memory_allocated()
+            r = summary(label, [done[u] for u in uids])
+            r["replica_steps"] = {
+                labels[e]: (len(t) - mark.get(e, 0),
+                            float(np.median(t[mark.get(e, 0):])),
+                            float(np.sum(t[mark.get(e, 0):])))
+                for e, t in step_ms.items() if len(t) > mark.get(e, 0)}
+            out.append(r)
+        fleet_resize(fw, fleet, 1, errors)
+        return out
+
+    threading.excepthook = record
+    try:
+        lone_drain("lone, no framework")
+        t0 = time.monotonic()
+        with fw:
+            for t, w in weights.items():
+                fleet.register_tenant(fw.add_tenant(t, weight=w))
+            start_s = time.monotonic() - t0
+            gc_ms = gc_probe(cfg)
+            fleet.submit("tenant-a", warmup_prompt(cfg), max_new_tokens=2)
+            resize(1)
+            fleet_wait(fleet, 1, errors)
+            fleet_resize(fw, fleet, 0, errors)
+
+            for side in ("lone", "fleet", "lone", "fleet"):
+                if side == "lone":
+                    lone_drain(side)
+                    continue
+                (done, engine), launches = fleet_run(fleet_drain)
+                fleet_resize(fw, fleet, 0, errors)
+                r = summary("fleet 0 -> 1", done, engine)
+                r["launches"] = launches
+                report(r)
+                runs.append(r)
+            for r in runs[1:]:
+                assert r["tokens"] == runs[0]["tokens"], \
+                    f"{cfg.name}: the {r['side']} drain's greedy tokens differ"
+                for key in ("admit_calls", "steps"):
+                    assert r["counters"][key] == runs[0]["counters"][key], \
+                        (r["side"], key, r["counters"], runs[0]["counters"])
+            print(f"fleet {cfg.name}: greedy tokens, admit calls and steps "
+                  f"identical in all {len(runs)} drains ("
+                  + ", ".join(r["side"] for r in runs) + ")")
+
+            resize(1)
+            retired0 = fleet.retired
+            n_before = len(builds)
+            scale, launches = fleet_run(under_load)
+            mem["after the scale-down to 1"] = torch.cuda.memory_allocated()
+            units = sorted(u.metadata.name for u in fw.super_api.list(
+                "WorkUnit", S.SERVING_NS, copy=False))
+            assert fleet.retired - retired0 == 2, fleet.retired
+            assert fleet.live_replicas() == 1 and units == ["engine-0"], units
+            assert len(builds) == n_before + 2
+            for r in scale:
+                report(r)
+            print(f"fleet {cfg.name} 1 -> 2 -> 3 -> 1: launches {launches}; "
+                  f"retired {fleet.retired} in all, 2 in this run; units "
+                  f"{units}")
+            replicas = {}
+            for b in builds[n_before - 1:]:
+                engine = b["engine"]
+                replicas[labels[engine]] = engine.counters()
+                print(f"fleet {cfg.name} 1 -> 2 -> 3 -> 1: {labels[engine]} "
+                      f"counters {engine.counters()}, decode step median "
+                      f"{float(np.median(step_ms[engine] or [0])):.2f} ms")
+            t_exit = time.monotonic()
+        stop_s = time.monotonic() - t_exit
+    finally:
+        threading.excepthook = hook
+    assert not errors, errors
+    for key, n in mem.items():
+        print(f"fleet {cfg.name}: torch.cuda.memory_allocated() {key}: "
+              f"{n / 1e9:.3f} GB")
+    phase_s = time.monotonic() - t_phase
+    print(f"fleet {cfg.name}: phase {phase_s:.1f} s; framework start and 3 "
+          f"tenants {start_s:.2f} s, stop {stop_s:.2f} s")
+    drop = ("tokens",)
+    print("fleet_ab " + json.dumps({
+        "model": cfg.name, "layers": cfg.n_layers, "slots": 8,
+        "max_len": 1024, "spawns": spawns,
+        "drains": [{k: v for k, v in r.items() if k not in drop}
+                   for r in runs],
+        "scale_1_2_3_1": {"runs": [{k: v for k, v in r.items()
+                                    if k not in drop} for r in scale],
+                          "launches": launches, "retired": fleet.retired,
+                          "replicas": replicas},
+        "memory_allocated_gb": {k: n / 1e9 for k, n in mem.items()},
+        "phase_s": phase_s, "framework_start_s": start_s,
+        "framework_stop_s": stop_s, "gc_collect_ms": gc_ms}))
+    return fleet_launches
+
+
+def gc_probe(cfg):
+    """Time one full ``gc.collect()`` in this process (it holds the
+    interpreter lock throughout), and say whether ``torch.cuda.graph``
+    runs one at the start of every capture, as a replica's factory does."""
+    import inspect
+    enter = inspect.getsource(torch.cuda.graph.__enter__)
+    at_capture = "gc.collect()" in enter and (
+        "force_cudagraph_gc" not in enter
+        or bool(torch.compiler.config.force_cudagraph_gc))
+    t0 = time.perf_counter()
+    gc.collect()
+    ms = (time.perf_counter() - t0) * 1e3
+    print(f"fleet {cfg.name}: one gc.collect() {ms:.1f} ms "
+          f"({len(gc.get_objects())} objects tracked); torch.cuda.graph "
+          f"collects at every capture: {at_capture}")
+    return ms
+
+
+def fleet_resize(fw, fleet, n, errors, timeout=120.0):
+    """``fleet.resize(n)``, then wait until units ``engine-0..n-1`` are all
+    ``Ready``, ``n`` replicas are live and every retired replica's drive
+    thread has exited. Returns {unit: ms from the resize to the unit's
+    ``Ready`` condition} for the units that became ready (the condition's
+    own timestamp, so the 10 ms poll neither rounds it nor takes the
+    interpreter lock often). A ``Failed`` unit, an exception on another
+    thread or the timeout raises."""
+    def units():
+        return {u.metadata.name: u.status for u in fw.super_api.list(
+            "WorkUnit", S.SERVING_NS, copy=False)}
+
+    was_ready = {k for k, st in units().items() if st.phase == "Ready"}
+    want = {f"engine-{i}" for i in range(n)}
+    t0 = time.time()                 # the conditions' clock
+    fleet.resize(n)
+    while True:
+        assert not errors, errors
+        assert time.time() - t0 < timeout, (
+            f"fleet did not reach {n} replicas in {timeout} s", units())
+        got = units()
+        for name, st in got.items():
+            if st.phase == "Failed":
+                raise RuntimeError(f"{name} failed: {st.message}")
+        drives = {t.name for t in threading.enumerate()
+                  if t.name.startswith("engine:")}
+        if (set(got) == want and all(got[k].phase == "Ready" for k in want)
+                and fleet.live_replicas() == n
+                and drives == {f"engine:{S.SERVING_NS}/{k}" for k in want}):
+            return {k: (got[k].condition("Ready").last_transition_time
+                        - t0) * 1e3 for k in sorted(want - was_ready)}
+        time.sleep(0.01)
+
+
+def wait_until(cond, errors, timeout=120.0):
+    """Poll ``cond`` every 5 ms; an exception on another thread or the
+    timeout raises."""
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert not errors, errors
+        assert time.monotonic() < deadline, "timed out"
+        time.sleep(0.005)
+
+
+def fleet_wait(fleet, n, errors, timeout=120.0):
+    """``fleet.wait_completed(n)``, failing early on an exception raised on
+    another thread (a drive thread that dies leaves its requests pending)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            return fleet.wait_completed(n, timeout=0.5)
+        except TimeoutError:
+            assert not errors, errors
+            if time.monotonic() > deadline:
+                raise
+
+
+def warmup_prompt(cfg):
+    """The one short request that warms an engine's drive thread."""
+    return np.random.default_rng(SEED).integers(0, cfg.vocab, 16)
 
 
 def free_card():
@@ -1259,19 +1695,22 @@ def main() -> int:
 
     by_path = {"grouped_gemm op, dropless MoE experts at "
                + ", ".join(MOE_CONFIGS): gg_path}
-    by_path["qwen2-7b"] = serving_phase(qwen2, kernels, n_req=24,
-                                        max_new=32, profile_admits=True)
+    by_path["qwen2-7b"], (params, lone) = serving_phase(
+        qwen2, kernels, n_req=24, max_new=32, profile_admits=True)
+    by_path["fleet qwen2-7b"] = fleet_phase(qwen2, kernels, params, lone,
+                                            n_req=24, max_new=32)
+    del params, lone
     free_card()
     by_path["rwkv6-7b"] = serving_phase(
         rwkv6, kernels, n_req=24, max_new=32,
         profile_scan=(rs_kernel.KERNEL, per_step_entry(
             rs_kernel.KERNEL, "rwkv6_scan_per_step_fwd", rwkv6_per_step_args),
-            "rwkv6_"))
+            "rwkv6_"))[0]
     free_card()
     by_path["jamba-v0.1-52b/8"] = serving_phase(
         jamba, kernels, n_req=24, max_new=32,
         profile_scan=(ms_kernel.KERNEL, per_step_entry(
-            ms_kernel.KERNEL, "mamba_scan_per_step_fwd"), "mamba_"))
+            ms_kernel.KERNEL, "mamba_scan_per_step_fwd"), "mamba_"))[0]
     free_card()
     launches = {k.name: sum(p[k.name] for p in by_path.values())
                 for k in kernels}

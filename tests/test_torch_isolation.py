@@ -39,6 +39,8 @@ def _imported_roots(path: Path):
 def test_port_files_exist():
     names = {p.relative_to(REPO).as_posix() for p in PORT_FILES}
     assert "src/repro_torch/serving/engine.py" in names
+    assert "src/repro_torch/serving/host.py" in names
+    assert "src/repro_torch/core/cluster.py" in names
     assert "src/repro_torch/kernels/flash_attention/kernel.py" in names
     assert "src/repro_torch/kernels/flash_decode/kernel.py" in names
     for kernel in ("rwkv6_scan", "mamba_scan", "grouped_gemm"):
@@ -66,6 +68,7 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.kernels.mamba_scan.kernel\n"
             "import repro_torch.models.rwkv6, repro_torch.models.mamba\n"
             "import repro_torch.models.moe\n"
+            "import repro_torch.core, repro_torch.serving.host\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
