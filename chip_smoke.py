@@ -33,48 +33,63 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    decode and grouped GEMM row names the kernel the call took;
 4. parity: the same seeded bf16 weights through the kernels and through
    the plain versions, prefill of 2 ragged prompts plus 4 decode steps,
-   logits compared: qwen2-7b and rwkv6-7b at full width with 2 layers,
+   logits compared: qwen2-7b, rwkv6-7b and gemma2-9b at full width with 2
+   layers (gemma2 also in fp32, and at prompts of 5000 and 4500 tokens in a
+   cache of 8192 positions, where its 4096-position window binds, with the
+   window's effect shown by a run without it: ``window_phase``),
    jamba-v0.1-52b at full width with one period of 8 layers, in bf16 and
    once more in fp32 (compute and cache);
 5. serving: each model behind ``ContinuousBatcher`` with 3 WRR tenants
    (weights 1, 1, 2) and seeded bf16 weights, served by two engines on
    the same weights in one process: the default one, whose decode step is
-   one CUDA graph captured in its constructor, and its eager twin
-   (``cuda_graph=False``). The eager twin first runs one decode step under
-   ``torch.cuda.set_sync_debug_mode("error")`` (no op of the step may sync
-   with the host). The same 24 seeded requests then drain through the
-   twins in turn, graphed, eager, graphed, eager; each drain prints
-   tokens/s, the decode-step median against its bound and TTFT p50/p99 per
-   tenant, and the greedy tokens must be the same in all four, request by
-   request. Then ``torch.profiler`` traces four full-batch decode steps of
-   each twin: the device's busy share, and one decode-attention partial and
-   combine kernel per attention layer a step, graph replays included. The
-   models: qwen2-7b at full width and depth (28 layers), then a trace of
-   one admit call (4 prompts of 512); rwkv6-7b at full width and depth (32
-   layers), then traces of one served admit call (one prompt of 600) with
-   the new scan kernel, the per-step one and the new one again, for the
-   scan's share of its device time (jamba likewise); jamba-v0.1-52b at
+   one CUDA graph captured in its constructor and whose admission is one
+   graph per (rows, bucket) shape for attention-only models (captured
+   after a shape's first call), and its eager twin (``cuda_graph=False``).
+   The eager twin first runs one decode step and, for attention-only
+   models, one admit call under ``torch.cuda.set_sync_debug_mode("error")``
+   (no op of either body may sync with the host). The same 24 seeded
+   requests then drain through the twins in turn, graphed, eager, graphed,
+   eager; each drain prints tokens/s, the decode-step median against its
+   bound, the admit calls and TTFT p50/p99 per tenant, and the greedy
+   tokens must be the same in all four, request by request. Then
+   ``torch.profiler`` traces four full-batch decode steps of each twin:
+   the device's busy share, and one decode-attention partial and combine
+   kernel per attention layer a step, graph replays included. The models:
+   qwen2-7b at full width and depth (28 layers), then a trace of one admit
+   call (4 prompts of 512) of each twin; rwkv6-7b at full width and depth
+   (32 layers), then traces of one served admit call (one prompt of 600)
+   with the new scan kernel, the per-step one and the new one again, for
+   the scan's share of its device time (jamba likewise); jamba-v0.1-52b at
    full width with one period (8 layers: 7 Mamba, 1 attention, 4 MoE of
-   16 experts; its 32 layers, ~104 GB in bf16, do not fit one 80 GB card).
+   16 experts; its 32 layers, ~104 GB in bf16, do not fit one 80 GB card);
+   gemma2-9b at full width and depth (42 layers, alternating "l" and "g",
+   softcaps 50 and 30, a tied table of 256,000 rows), then served at
+   max_len 8192 with prompts past its window (``long_window_drain``).
    Each model is freed before the next loads. The launch counters, set to
    0 before each drain and read after it, show that every prefill and
    decode went through the kernels (a graph's replay adds the launches its
    capture recorded), and the decode steps through the tensor-core decode
    kernel;
-6. fleet, after qwen2-7b's serving phase, on its weights: the same
-   requests through the control plane, tenants of a live
-   ``VirtualClusterFramework`` served by a ``ServingFleet`` of graphed
-   qwen2-7b replicas on the one card (WorkUnits placed by the
-   SuperScheduler, engines built by the node agents' providers on the
-   executor's pool threads). Lone, fleet, lone, fleet drains, each fleet
-   drain a 0 -> 1 resize under the backlog, must give the lone engine's
-   tokens, admit calls and steps; then 1 -> 2 -> 3 -> 1 replicas under
-   load must finish every request and retire 2 replicas, every unit
-   reaching ``Ready``; each fleet run's launches must be the sum over its
-   replicas. Lines ``fleet qwen2-7b ...`` and ``fleet_ab {...}``
-   (``fleet_phase``).
+6. admission, after qwen2-7b's serving phase, on its weights: graphed
+   against eager admission on one engine with the graphed step
+   (``admission_ab``: lines ``admission qwen2-7b ...`` and
+   ``admission_ab {...}``);
+7. fleet, on the same weights: the same requests through the control
+   plane, tenants of a live ``VirtualClusterFramework`` served by a
+   ``ServingFleet`` of graphed qwen2-7b replicas on the one card
+   (WorkUnits placed by the SuperScheduler, engines built by the node
+   agents' providers on the executor's pool threads). Lone, fleet, lone,
+   fleet drains, each fleet drain a 0 -> 1 resize under the backlog, must
+   give the lone engine's tokens, admit calls and steps; a 0 -> 2 resize
+   in one call (both replicas built at once) must give the lone engine's
+   tokens for one request per bucket; then 2 replicas with eager and
+   graphed admission in turn, 2 -> 3 -> 1 under load must finish every
+   request and retire 2 replicas, every unit reaching ``Ready``; each
+   fleet run's launches must be the sum over its replicas. Lines
+   ``fleet qwen2-7b ...`` and ``fleet_ab {...}`` (``fleet_phase``).
 
-The line before the last is ``{"kernels": [...]}``; the last line is
+Every device-wide sync here takes the port's ``CAPTURE_LOCK``, since
+engines capture on other threads. The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -98,6 +113,7 @@ from repro_torch import models as M
 from repro_torch import serving as S
 from repro_torch.configs import get_config
 from repro_torch.core import VirtualClusterFramework
+from repro_torch.device import CAPTURE_LOCK
 from repro_torch.kernels._build import build_all
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention.ops import decode_mha, mha
@@ -115,6 +131,15 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}   # dense, no sparsity
 
 
+def sync():
+    """A device-wide sync under the port's capture lock: engines may be
+    capturing on other threads (a fleet's replicas on pool threads, any
+    engine's admission shapes on its drive thread), and CUDA refuses a
+    device-wide sync while another thread captures."""
+    with CAPTURE_LOCK:
+        torch.cuda.synchronize()
+
+
 def time_ms(fn, iters=20, warmup=3):
     """Mean time of ``fn`` over ``iters`` back-to-back calls between CUDA
     events: the device's time, or the host's time to issue the calls where
@@ -122,7 +147,7 @@ def time_ms(fn, iters=20, warmup=3):
     kernels' ``events_ms``, the measure their ``ms`` once was."""
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
+    sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -139,7 +164,7 @@ def graph_ms(fn, iters=20, replays=3):
     ``time_ms`` this leaves out the host's time to issue each call, which
     at decode's size is longer than the kernels' own."""
     fn()
-    torch.cuda.synchronize()
+    sync()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):     # warm-up off the default stream
@@ -151,7 +176,7 @@ def graph_ms(fn, iters=20, replays=3):
         for _ in range(iters):
             fn()
     graph.replay()
-    torch.cuda.synchronize()
+    sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -206,7 +231,7 @@ def prefill_shape(gen, label, B, S, H, KV, D, window, softcap, sdpa):
     kw = dict(causal=True, window=window, softcap=softcap)
     out = mha(q, k, v, impl="cuda", **kw)
     ref = mha(q, k, v, impl="torch", **kw)
-    torch.cuda.synchronize()
+    sync()
     assert torch.isfinite(out.float()).all()
     err = max_err(out, ref)
     check(f"flash_attention {label}", err, 2e-2)
@@ -255,7 +280,7 @@ def prefill_phase(gen):
         kw = dict(causal=True, window=window, softcap=softcap)
         out = mha(q, k, v, impl="cuda", **kw)
         ref = mha(q, k, v, impl="torch", **kw)
-        torch.cuda.synchronize()
+        sync()
         errs[label] = max_err(out, ref)
         check(f"flash_attention {label}", errs[label], tol)
 
@@ -306,7 +331,7 @@ def decode_shape(gen, label, B, L, H, KV, D, window, softcap):
     kw = dict(window=window, softcap=softcap)
     out = decode_mha(q, kc, vc, lengths, impl="cuda", **kw)
     ref = decode_mha(q, kc, vc, lengths, impl="torch", **kw)
-    torch.cuda.synchronize()
+    sync()
     assert torch.isfinite(out.float()).all()
     err = max_err(out, ref)
     check(f"flash_decode {label}", err, 3e-2)
@@ -359,7 +384,7 @@ def decode_phase(gen):
             kw = dict(window=window, softcap=softcap)
             out = decode_mha(q, kc, vc, lengths, impl="cuda", **kw)
             ref = decode_mha(q, kc, vc, lengths, impl="torch", **kw)
-            torch.cuda.synchronize()
+            sync()
             key = f"{label}, window {window}, softcap {softcap}"
             errs[key] = max_err(out, ref)
             check(f"flash_decode {key} ({kinds[label]})", errs[key], 3e-2)
@@ -460,7 +485,7 @@ def rwkv6_shape(gen, B, S, label, plain_iters=3):
     ref, s2 = rwkv6_scan(*args, impl="torch")
     out12, s12 = with_fn(rs_kernel.KERNEL, old,
                          lambda: rwkv6_scan(*args, impl="cuda"))
-    torch.cuda.synchronize()
+    sync()
     assert torch.isfinite(out.float()).all() and torch.isfinite(s1).all()
     assert out.shape == r.shape and s1.shape == (B, H, D, D)
     errs = {"out": max_err(out, ref), "state": max_err(s1, s2),
@@ -530,7 +555,7 @@ def mamba_shape(gen, Bt, S, label, plain_iters=3):
     ref, h2 = mamba_scan(*args, impl="torch")
     y12, h12 = with_fn(ms_kernel.KERNEL, old,
                        lambda: mamba_scan(*args, impl="cuda"))
-    torch.cuda.synchronize()
+    sync()
     assert torch.isfinite(y).all() and y.shape == x.shape
     # fp32 both; the chunked plain form's exp(+-cumsum) (|cumsum| <= 80,
     # fp32 ulp 7.6e-6) leaves ~1e-5 relative error per state, summed over 16
@@ -633,7 +658,7 @@ def library_grouped_mm(x, sizes, W):
     offs = sizes.cumsum(0).to(torch.int32)
     try:
         torch._grouped_mm(x, W, offs=offs)
-        torch.cuda.synchronize()
+        sync()
         return (lambda: torch._grouped_mm(x, W, offs=offs),
                 "torch._grouped_mm (row-major W)")
     except (AttributeError, RuntimeError, TypeError, ValueError) as e:
@@ -676,7 +701,7 @@ def product_row(label, x, sizes, W):
     tol = GG_TOL[x.dtype]
     got = grouped_gemm(x, sizes, W, impl="cuda")
     want = grouped_gemm(x, sizes, W, impl="torch")
-    torch.cuda.synchronize()
+    sync()
     assert torch.isfinite(got.float()).all()
     err = check_close(f"grouped_gemm {label}", got, want, tol, tol)
     ms = graph_ms(lambda: grouped_gemm(x, sizes, W, impl="cuda"))
@@ -727,7 +752,7 @@ def grouped_gemm_phase(gen, kernels):
     cases = {}
     for name in MOE_CONFIGS:
         cases[name] = moe_case(get_config(name), gen)
-    torch.cuda.synchronize()
+    sync()
 
     for name in MOE_CONFIGS:     # the path's products take the wgmma kernel
         x, p, t_s, _, sizes = cases[name]
@@ -741,7 +766,7 @@ def grouped_gemm_phase(gen, kernels):
         k.launches = 0
     outs = {name: dropless_experts(*cases[name], gemm=grouped_gemm)
             for name in MOE_CONFIGS}
-    torch.cuda.synchronize()
+    sync()
     path_launches = {k.name: k.launches for k in kernels}
     want = {k.name: 3 * len(MOE_CONFIGS) if k is gg_kernel.KERNEL else 0
             for k in kernels}
@@ -825,23 +850,26 @@ def capacity_check(cfg, x, p):
                 want, 3e-2, 3e-2)
 
 
-def parity_phase(cfg, n_layers, tol, why, compute_dtype=torch.bfloat16):
+def parity_phase(cfg, n_layers, tol, why, compute_dtype=torch.bfloat16,
+                 lens=(100, 37), max_len=256):
     """Full width, ``n_layers`` layers: kernels vs plain versions on the
     same seeded bf16 weights and inputs, computing (and caching K/V) in
-    ``compute_dtype``."""
+    ``compute_dtype``: two right-padded prompts of ``lens`` tokens
+    prefilled into a cache of ``max_len``, then 4 decode steps. Returns the
+    kernels' logits [5, 2, 1, vocab] (fp32)."""
     cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = M.init_params(cfg2, generator=gen, device="cuda",
                            dtype=torch.bfloat16)
     rng = np.random.default_rng(SEED)
-    lens = np.array([100, 37], np.int32)
-    toks = np.zeros((2, 128), np.int32)
+    lens = np.array(lens, np.int32)
+    toks = np.zeros((2, -(-int(lens.max()) // 128) * 128), np.int32)
     for i, n in enumerate(lens):
         toks[i, :n] = rng.integers(0, cfg.vocab, n)
     steps = rng.integers(0, cfg.vocab, (4, 2, 1)).astype(np.int32)
     logits = {}
     for impl in ("cuda", "torch"):
-        cache = M.init_cache(cfg2, 2, 256, dtype=compute_dtype,
+        cache = M.init_cache(cfg2, 2, max_len, dtype=compute_dtype,
                              device="cuda")
         out, cache, lengths = M.prefill(
             params, cfg2, torch.from_numpy(toks).cuda(), cache,
@@ -855,16 +883,44 @@ def parity_phase(cfg, n_layers, tol, why, compute_dtype=torch.bfloat16):
                 impl=impl, compute_dtype=compute_dtype)
             seq.append(out)
         logits[impl] = torch.stack(seq)[..., :cfg.vocab].float()
+        del cache
     a, b = logits["cuda"], logits["torch"]
     assert torch.isfinite(a).all() and a.shape == (5, 2, 1, cfg.vocab)
     err = max_err(a, b)
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
     print(f"parity {cfg.name} full width, {n_layers} layers, "
-          f"{str(compute_dtype).split('.')[-1]}: logits "
+          f"{str(compute_dtype).split('.')[-1]}, prompts {lens.tolist()}, "
+          f"max_len {max_len}, window {cfg.sliding_window}: logits "
           f"max_abs_err={err!r} (logit std {float(b.std())!r}), argmax "
           f"agreement {agree!r}; tolerance {tol}: {why}")
-    check(f"parity logits {cfg.name} {compute_dtype}", err, tol)
+    check(f"parity logits {cfg.name} {compute_dtype} prompts "
+          f"{lens.tolist()} window {cfg.sliding_window}", err, tol)
     del params
+    return a
+
+
+def window_phase(cfg, tol, why):
+    """The sliding window where it binds: ``cfg`` (gemma2-9b) at full
+    width with 2 layers ("l", then "g"), a cache of 8192 positions and
+    prompts of 5000 and 4500 tokens, past the 4096-position window, then 4
+    decode steps at positions 5000-5003 and 4500-4503. The kernels' logits
+    against the plain versions' (``parity_phase``), then the same with the
+    window removed; the two kernel runs must differ (the kernels are
+    deterministic, so any difference is the window's: the "l" layer masks
+    keys in prefill and in decode). Returns the difference."""
+    lens, max_len = (5000, 4500), 8192
+    assert min(lens) > cfg.sliding_window and max(lens) + 5 < max_len
+    windowed = parity_phase(cfg, 2, tol, why, lens=lens, max_len=max_len)
+    free_card()
+    opened = parity_phase(dataclasses.replace(cfg, sliding_window=0), 2, tol,
+                          why, lens=lens, max_len=max_len)
+    diff = max_err(windowed, opened)
+    print(f"window {cfg.name}: the kernels' logits with and without the "
+          f"{cfg.sliding_window}-position window differ by up to {diff!r} "
+          f"at prompts {list(lens)} (the window binds)")
+    assert diff > 0, "the window changed no logit"
+    free_card()
+    return diff
 
 
 def serving_phase(cfg, kernels, *, n_req, max_new, profile_admits=False,
@@ -887,7 +943,7 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile_admits=False,
     t0 = time.monotonic()
     params = M.init_params(cfg, generator=gen, device="cuda",
                            dtype=torch.bfloat16)
-    torch.cuda.synchronize()
+    sync()
     w_total = sum(t.numel() * t.element_size() for t in _leaves(params))
     print(f"serving: init_params {cfg.name} ({cfg.n_layers} layers, bf16 "
           f"matrices, {w_total / 1e9:.2f} GB) {time.monotonic() - t0:.1f} s")
@@ -898,11 +954,14 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile_admits=False,
         t0 = time.perf_counter()
         engine = S.GenerationEngine(cfg, params, slots=8, max_len=1024,
                                     cuda_graph=graphed)
-        torch.cuda.synchronize()
+        sync()
         build_ms[graphed] = (time.perf_counter() - t0) * 1e3
         assert (engine._graph is not None) == graphed
+        assert engine._graph_admit == (graphed and not engine._exact_buckets)
         if not graphed:
             sync_free_step(cfg, engine)
+            if not engine._exact_buckets:
+                sync_free_admit(cfg, engine)
         sched = S.SlotScheduler()
         for t, w in weights.items():
             sched.register_tenant(t, weight=w)
@@ -920,8 +979,9 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile_admits=False,
     engine = twins[True][0]
     w_bytes = sum(t.numel() * t.element_size()
                   for t in _leaves(params) if t.dim() >= 2)
-    table = params["embed"]["table"]
-    w_bytes -= table.numel() * table.element_size()    # only rows gathered
+    if not cfg.tie_embeddings:       # else the head reads all of the table
+        table = params["embed"]["table"]
+        w_bytes -= table.numel() * table.element_size()  # only rows gathered
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in _leaves(engine.cache))
     step_bound_ms = (w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
@@ -959,8 +1019,14 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile_admits=False,
 
     busy = {label[g]: profile_decode(cfg, *twins[g], label[g])
             for g in (True, False)}
-    if profile_admits:
-        profile_admit(cfg, engine, np.random.default_rng(SEED + 2))
+    admit_profile = {}
+    if profile_admits:     # the graphed twin's second call replays a graph
+        for g in (True, False):
+            ms, busy_ms, wall = profile_admit(
+                cfg, twins[g][0], np.random.default_rng(SEED + 2),
+                label=f"prefill attention, {label[g]} admission")
+            admit_profile[label[g]] = {"attention_ms": ms, "busy_ms": busy_ms,
+                                       "wall_ms": wall}
     if profile_scan:
         profile_scan_admit(cfg, engine, np.random.default_rng(SEED + 2),
                            *profile_scan)
@@ -968,9 +1034,10 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile_admits=False,
         "model": cfg.name, "layers": cfg.n_layers,
         "step_bound_ms": step_bound_ms,
         "construct_ms": {label[g]: build_ms[g] for g in (True, False)},
-        "profile": busy,
+        "profile": busy, "admit_profile": admit_profile,
+        "admit_graphs": sorted(engine._admit_graphs),
         "drains": [{k: r[k] for k in ("twin", "tokens_s", "step_median_ms",
-                                      "ttft_ms")} for r in runs]}))
+                                      "ttft_ms", "admits")} for r in runs]}))
     return runs[0]["launches"], (params, engine)
 
 
@@ -982,26 +1049,218 @@ def sync_free_step(cfg, engine):
     since ``step()`` ends in its one host sync by design; the request is
     then drained and dropped."""
     engine.admit_many([S.Request(0, np.arange(16, dtype=np.int32), 4)])
-    torch.cuda.synchronize()
+    sync()
     torch.cuda.set_sync_debug_mode("error")
     try:
         engine._step()
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
+    sync()
     while engine.active_slots():
         engine.step()
     print(f"serving {cfg.name}: one eager decode step under sync debug mode "
           f"'error': no op synced")
 
 
-def drain(cfg, engine, batcher, kernels, weights, n_req, max_new):
+def sync_free_admit(cfg, engine):
+    """One eager admit call of ``engine`` under
+    ``torch.cuda.set_sync_debug_mode("error")``: ``_admit_staged``, the body
+    an admission graph captures, on a staged buffer of 2 prompts of 12 and
+    7 tokens (bucket 16) into two free slots, with a budget of one token,
+    so that both slots stay free."""
+    rng = np.random.default_rng(SEED + 5)
+    k, pad_len = 2, 16
+    lens = np.array([12, 7], np.int32)
+    prompts = np.zeros((k, pad_len), np.int32)
+    for j, n in enumerate(lens):
+        prompts[j, :n] = rng.integers(0, cfg.vocab, n)
+    idx = np.asarray(engine.free_slots()[:k], np.int32)
+    buf = torch.from_numpy(np.concatenate(
+        [prompts.reshape(-1), idx, lens, np.ones(k, np.int32)])).cuda()
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = engine._admit_staged(buf, k, pad_len)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    first = first.cpu()
+    assert bool(((first >= 0) & (first < cfg.vocab)).all()), first
+    assert not bool(engine._active.any())
+    print(f"serving {cfg.name}: one eager admit call ({k} x {pad_len}) under "
+          f"sync debug mode 'error': no op synced")
+
+
+def long_window_drain(cfg, kernels, params, *, max_new=8):
+    """Full-depth ``cfg`` (gemma2-9b) served at max_len 8192, so that its
+    4096-position window binds: one graphed engine of 4 slots (2.82 GB of
+    cache a slot), prompts of 5000, 4200, 700 and 100 tokens (admit calls
+    of 2 x 8191, 1 x 1024 and 1 x 128), ``max_new`` tokens each, drained
+    three times, its graph admission cleared, then set (each shape captured
+    after its first call), then set again (every call replays). Gated:
+    greedy tokens identical in all three, each drain's launches
+    ``expected_launches``, the third drain all replays. Prints a
+    ``long_window {...}`` line; returns the first graphed drain's
+    launches."""
+    weights = {"tenant-a": 1, "tenant-b": 1, "tenant-c": 2}
+    mem = {"before the engine": memory_gb()}
+    engine = S.GenerationEngine(cfg, params, slots=4, max_len=8192)
+    sync()
+    mem["engine built (decode graph)"] = memory_gb()
+    assert engine._graph_admit and cfg.sliding_window < 4200
+    sched = S.SlotScheduler()
+    for t, w in weights.items():
+        sched.register_tenant(t, weight=w)
+    batcher = S.ContinuousBatcher(engine, scheduler=sched)
+    rng = np.random.default_rng(SEED + 7)
+    reqs = [(list(weights)[i % len(weights)], rng.integers(0, cfg.vocab, n))
+            for i, n in enumerate((5000, 4200, 700, 100))]
+    runs = []
+    for graph_admit in (False, True, True):
+        engine._graph_admit = graph_admit
+        replays = engine._admit_replays
+        r = drain(cfg, engine, batcher, kernels, weights, len(reqs), max_new,
+                  reqs=reqs)
+        r["twin"] = "graphed admission" if graph_admit else "eager admission"
+        r["admit_replays"] = engine._admit_replays - replays
+        runs.append(r)
+        a = r["admits"]
+        print(f"long_window {cfg.name} max_len 8192 {r['twin']}: "
+              f"{r['tokens_total']} tokens in {r['wall_s']:.3f} s; "
+              f"{a['calls']} admit calls, median {a['median_ms']:.1f} ms, in "
+              f"all {a['total_ms']:.1f} ms ({r['admit_replays']} replays); "
+              f"decode step median {r['step_median_ms']:.2f} ms over "
+              f"{r['steps']} steps; launches {r['launches']}")
+    mem["after its admission graphs"] = memory_gb()
+    for r in runs[1:]:
+        assert r["tokens"] == runs[0]["tokens"], \
+            f"{cfg.name}: the {r['twin']} drain's greedy tokens differ"
+    assert runs[2]["admit_replays"] == runs[2]["counters"]["admit_calls"] == 3
+    pools = {"decode graph": pool_gb(engine._graph.pool()),
+             "admission graphs": pool_gb(engine._admit_pool)}
+    print(f"long_window {cfg.name}: greedy tokens identical in all 3 drains "
+          f"(eager, graphed, graphed admission); graph pools {pools} GB")
+    drop = ("tokens",)
+    print("long_window " + json.dumps({
+        "model": cfg.name, "layers": cfg.n_layers, "slots": 4,
+        "max_len": 8192, "prompt_lengths": [len(p) for _, p in reqs],
+        "graph_pools_gb": pools, "memory_gb": mem,
+        "drains": [{k: v for k, v in r.items() if k not in drop}
+                   for r in runs]}))
+    del engine, batcher
+    free_card()
+    return runs[1]["launches"]
+
+
+def memory_gb():
+    """The allocator's allocated and reserved memory on the card, GB."""
+    return {"allocated": torch.cuda.memory_allocated() / 1e9,
+            "reserved": torch.cuda.memory_reserved() / 1e9}
+
+
+def pool_gb(pool):
+    """GB of the allocator's segments in CUDA-graph memory pool ``pool``,
+    from its snapshot; None where this torch's snapshot names no pools."""
+    segs = torch.cuda.memory_snapshot()
+    if segs and "segment_pool_id" not in segs[0]:
+        return None
+    return sum(sg["total_size"] for sg in segs
+               if tuple(sg["segment_pool_id"]) == tuple(pool)) / 1e9
+
+
+def admission_ab(cfg, kernels, params, *, n_req, max_new):
+    """Graphed against eager admission in one process: one engine (8
+    slots, max_len 1024, graphed decode step) on ``serving_phase``'s
+    weights, its graph admission cleared and set in turn (eager, graphed,
+    eager, graphed), the serving drains' requests each time. The first
+    graphed drain captures each (rows, bucket) shape after its first call
+    (each capture's host time noted); the second replays every call. Gated:
+    greedy tokens identical in all four, each drain's launches
+    ``expected_launches`` (a replay adds what its capture recorded), the
+    second graphed drain all replays. Prints each drain and an
+    ``admission_ab`` JSON line: admit-call medians and sums, TTFT, tokens/s,
+    the graphs with their capture ms, and the engine's memory before and
+    after its admission graphs (allocated, reserved, and the pools of its
+    decode and admission graphs). Returns the first graphed drain's
+    launches."""
+    weights = {"tenant-a": 1, "tenant-b": 1, "tenant-c": 2}
+    mem = {"before the engine": memory_gb()}
+    engine = S.GenerationEngine(cfg, params, slots=8, max_len=1024)
+    sync()
+    assert engine._graph is not None and engine._graph_admit
+    mem["engine built (decode graph)"] = memory_gb()
+    captures = []
+    capture = engine._capture_admit
+
+    def timed_capture(k, pad_len):
+        t0 = time.perf_counter()
+        capture(k, pad_len)
+        captures.append({"rows": k, "bucket": pad_len,
+                         "ms": (time.perf_counter() - t0) * 1e3})
+
+    engine._capture_admit = timed_capture
+    sched = S.SlotScheduler()
+    for t, w in weights.items():
+        sched.register_tenant(t, weight=w)
+    batcher = S.ContinuousBatcher(engine, scheduler=sched)
+    engine._graph_admit = False         # the warm-up request, eagerly
+    batcher.submit(warmup_prompt(cfg), max_new_tokens=2)
+    batcher.run_until_drained()
+    label = {True: "graphed admission", False: "eager admission"}
+    runs = []
+    for graph_admit in (False, True, False, True):
+        engine._graph_admit = graph_admit
+        replays, graphs = engine._admit_replays, len(engine._admit_graphs)
+        r = drain(cfg, engine, batcher, kernels, weights, n_req, max_new)
+        r.update(twin=label[graph_admit],
+                 admit_replays=engine._admit_replays - replays,
+                 graphs_captured=len(engine._admit_graphs) - graphs)
+        if graph_admit and "after its admission graphs" not in mem:
+            mem["after its admission graphs"] = memory_gb()
+        runs.append(r)
+        a = r["admits"]
+        print(f"admission {cfg.name} {r['twin']}: {r['tokens_s']:.1f} "
+              f"tokens/s; {a['calls']} admit calls, median "
+              f"{a['median_ms']:.1f} ms, in all {a['total_ms']:.1f} ms "
+              f"({r['admit_replays']} replays, {r['graphs_captured']} graphs "
+              f"captured); decode step median {r['step_median_ms']:.2f} ms; "
+              f"launches {r['launches']}")
+        for t in weights:
+            p50, p99, mx = r["ttft_ms"][t]
+            print(f"admission {cfg.name} {r['twin']}: {t} (weight "
+                  f"{weights[t]}) TTFT p50 {p50:.1f} ms p99 {p99:.1f} ms "
+                  f"max {mx:.1f} ms")
+    for r in runs[1:]:
+        assert r["tokens"] == runs[0]["tokens"], \
+            f"{cfg.name}: the {r['twin']} drain's greedy tokens differ"
+    assert runs[0]["admit_replays"] == runs[2]["admit_replays"] == 0
+    assert runs[1]["graphs_captured"] == len(engine._admit_graphs) > 0
+    assert runs[3]["graphs_captured"] == 0
+    assert runs[3]["admit_replays"] == runs[3]["counters"]["admit_calls"]
+    pools = {"decode graph": pool_gb(engine._graph.pool()),
+             "admission graphs": pool_gb(engine._admit_pool)}
+    print(f"admission {cfg.name}: greedy tokens identical in all 4 drains; "
+          f"{len(captures)} admission graphs captured, "
+          f"{sum(c['ms'] for c in captures):.1f} ms in all; graph pools "
+          f"{pools} GB; memory {mem}")
+    drop = ("tokens",)
+    print("admission_ab " + json.dumps({
+        "model": cfg.name, "layers": cfg.n_layers, "slots": 8,
+        "max_len": 1024, "captures": captures, "graph_pools_gb": pools,
+        "memory_gb": mem,
+        "drains": [{k: v for k, v in r.items() if k not in drop}
+                   for r in runs]}))
+    return runs[1]["launches"]
+
+
+def drain(cfg, engine, batcher, kernels, weights, n_req, max_new,
+          reqs=None):
     """Submit ``n_req`` seeded requests (the same in every drain: 16-600
     prompt tokens, ``max_new`` new ones, tenant-major flood over
-    ``weights``), drain them, and check the drain: every request complete,
-    each kernel's launches ``expected_launches``, host syncs = admit calls
-    + steps, no whole-cache copy. Returns its numbers and each request's
-    tokens in submission order."""
+    ``weights``; or ``reqs``, (tenant, prompt) pairs), drain them, and
+    check the drain: every request complete, each kernel's launches
+    ``expected_launches``, host syncs = admit calls + steps, no whole-cache
+    copy. Returns its numbers and each request's tokens in submission
+    order."""
     step_ms = []
     step = engine.step
 
@@ -1016,14 +1275,16 @@ def drain(cfg, engine, batcher, kernels, weights, n_req, max_new):
     try:
         batcher.completed.clear()
         before = engine.counters()
+        if reqs is None:
+            reqs = drain_requests(cfg, weights, n_req)
         uids = {batcher.submit(prompt, max_new_tokens=max_new,
                                tenant=tenant): tenant
-                for tenant, prompt in drain_requests(cfg, weights, n_req)}
+                for tenant, prompt in reqs}
         for k in kernels:
             k.launches = 0
         t0 = time.monotonic()
         batcher.run_until_drained()
-        torch.cuda.synchronize()
+        sync()
         wall = time.monotonic() - t0
         launches = {k.name: k.launches for k in kernels}
     finally:
@@ -1031,7 +1292,7 @@ def drain(cfg, engine, batcher, kernels, weights, n_req, max_new):
     after = engine.counters()
     d = {key: after[key] - before[key] for key in after}
     done = batcher.completed
-    assert len(done) == n_req and set(done) == set(uids), "requests lost"
+    assert len(done) == len(reqs) and set(done) == set(uids), "requests lost"
     for uid, r in done.items():
         assert r.done and len(r.tokens) == max_new, (uid, len(r.tokens))
         assert all(0 <= t < cfg.vocab for t in r.tokens)
@@ -1060,6 +1321,18 @@ def drain_requests(cfg, weights, n_req):
         n = int(rng.integers(16, 601))
         out.append((tenant, rng.integers(0, cfg.vocab, n)))
     return out
+
+
+def distinct_requests(cfg, weights, lengths=(5, 12, 30, 60, 120, 250, 500,
+                                             800)):
+    """Seeded (tenant, prompt) pairs, one prompt per admission bucket of a
+    max_len 1024 engine (buckets 8 to 1023): every admit call then holds
+    one row, whichever engine takes the request, so each replica computes
+    each request as a lone engine does (a bf16 product over another number
+    of rows may differ in its last bit)."""
+    rng = np.random.default_rng(SEED + 6)
+    return [(list(weights)[i % len(weights)], rng.integers(0, cfg.vocab, n))
+            for i, n in enumerate(lengths)]
 
 
 def admit_stats(done):
@@ -1120,15 +1393,22 @@ def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
        ``take`` sees them all as ``pump`` does; the replica is retired
        after. Gated: every drain's tokens, request by request, and its
        admit calls and steps equal the first lone drain's.
-    4. 1 -> 2 replicas and the requests drained by both, once at the
-       interpreter's switch interval and once at 0.5 ms (how much the
-       replicas' drive threads wait for each other's interpreter lock);
-       the requests again, with 3 replicas asked for while they are in
-       flight; back to 1 once they are done. Gated: every request
+    4. 0 -> 2 replicas in one resize, both built at once on pool threads
+       (their captures take turns under the port's capture lock), under a
+       backlog of one request per admission bucket
+       (``distinct_requests``). Gated: those requests' tokens equal the
+       lone engine's (every admit call holds one row, whichever replica
+       takes it).
+    5. The requests drained by the 2 replicas with their admission eager
+       and graphed in turn (eager, graphed, eager, graphed: each engine's
+       graph admission cleared or set), then at a 0.5 ms switch interval
+       (how much the replicas' drive threads wait for each other's
+       interpreter lock); again with 3 replicas asked for while they are
+       in flight; back to 1 once they are done. Gated: every request
        completes, 2 replicas retire, only ``engine-0`` is left. Counted,
        not gated: the requests whose tokens equal the lone drains'
        (admission groups differ, and a bf16 product over another number
-       of rows may differ by an ulp).
+       of rows may differ in its last bit).
 
     Every spawned unit must reach ``Ready`` (a factory that raises leaves
     its unit ``Failed``), an exception on any thread fails the phase, and
@@ -1206,7 +1486,7 @@ def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
         for k in kernels:
             k.launches = 0
         out = run()
-        torch.cuda.synchronize()
+        sync()
         launches = {k.name: k.launches for k in kernels}
         want = dict.fromkeys(launches, 0)
         for b in builds:
@@ -1237,7 +1517,7 @@ def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
              "ttft_ms": ttft_ms(done, weights),
              "ttft_from_first_take_ms": ttft_ms(done, weights, since=first),
              "admits": admit_stats(done)}
-        if runs:
+        if runs and len(tokens) == n_req:
             r["same_tokens_as_lone"] = sum(
                 t == w for t, w in zip(tokens, runs[0]["tokens"]))
         if engine is not None:
@@ -1247,7 +1527,7 @@ def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
         return r
 
     def report(r):
-        line = (f"fleet {cfg.name} {r['side']}: {n_req} requests, "
+        line = (f"fleet {cfg.name} {r['side']}: {len(r['tokens'])} requests, "
                 f"{r['tokens_total']} tokens in {r['wall_s']:.3f} s = "
                 f"{r['tokens_s']:.1f} tokens/s")
         if "ttft_from_first_take_ms" in r:
@@ -1265,7 +1545,8 @@ def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
         if "launches" in r:
             line += f"; launches {r['launches']}"
         if "same_tokens_as_lone" in r:
-            line += (f"; {r['same_tokens_as_lone']} of {n_req} requests' "
+            line += (f"; {r['same_tokens_as_lone']} of {len(r['tokens'])} "
+                     f"requests' "
                      f"tokens equal the lone engine's")
         print(line)
         for t in weights:
@@ -1279,15 +1560,17 @@ def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
                          f"{p99:.1f} max {mx:.1f}")
             print(line)
 
-    def lone_drain(side):
+    def lone_drain(side, drain_reqs=None):
         sched = S.SlotScheduler()
         for t, w in weights.items():
             sched.register_tenant(t, weight=w)
         r = drain(cfg, lone, S.ContinuousBatcher(lone, scheduler=sched),
-                  kernels, weights, n_req, max_new)
+                  kernels, weights, n_req, max_new, reqs=drain_reqs)
         r["side"] = side
         report(r)
-        runs.append(r)
+        if drain_reqs is None:
+            runs.append(r)
+        return r
 
     def fleet_drain():
         """The requests, then a 0 -> 1 resize."""
@@ -1299,14 +1582,33 @@ def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
         return [done[u] for u in uids], builds[-1]["engine"]
 
     def under_load():
-        """1 -> 2 replicas; the requests drained by both, at the default
-        and at a 0.5 ms switch interval; again with a third replica asked
-        for while they are in flight; back to 1."""
-        out = []
+        """0 -> 2 replicas in one resize under a backlog of one request per
+        bucket; the requests drained by both with eager and graphed
+        admission in turn, then at a 0.5 ms switch interval; again with a
+        third replica asked for while they are in flight; back to 1."""
+        fleet.pop_completed()
+        uids = [fleet.submit(t, p, max_new_tokens=max_new)
+                for t, p in distinct]
         resize(2)
-        for label, interval in (("2 replicas", None),
-                                ("2 replicas, switch interval 0.5 ms", 5e-4),
-                                ("2 -> 3 replicas", None)):
+        done = fleet_wait(fleet, len(uids), errors)
+        r = summary("0 -> 2 replicas, one request a bucket",
+                    [done[u] for u in uids])
+        r["same_tokens_as_lone"] = sum(
+            t == w for t, w in zip(r["tokens"], distinct_lone["tokens"]))
+        assert r["tokens"] == distinct_lone["tokens"], \
+            f"{cfg.name}: a replica's tokens differ from the lone engine's"
+        out = [r]
+        for label, interval, graph_admit in (
+                ("2 replicas, eager admission", None, False),
+                ("2 replicas, graphed admission", None, True),
+                ("2 replicas, eager admission", None, False),
+                ("2 replicas, graphed admission", None, True),
+                ("2 replicas, switch interval 0.5 ms", 5e-4, True),
+                ("2 -> 3 replicas", None, True)):
+            for b in builds[n_before:]:
+                b["engine"]._graph_admit = graph_admit
+            replays = {b["engine"]: b["engine"]._admit_replays
+                       for b in builds[n_before:]}
             fleet.pop_completed()
             mark = {e: len(t) for e, t in step_ms.items()}
             default = sys.getswitchinterval()
@@ -1324,6 +1626,8 @@ def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
             mem[f"{fleet.live_replicas()} replicas"] = \
                 torch.cuda.memory_allocated()
             r = summary(label, [done[u] for u in uids])
+            r["admit_replays"] = sum(e._admit_replays - n
+                                     for e, n in replays.items())
             r["replica_steps"] = {
                 labels[e]: (len(t) - mark.get(e, 0),
                             float(np.median(t[mark.get(e, 0):])),
@@ -1367,7 +1671,8 @@ def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
                   f"identical in all {len(runs)} drains ("
                   + ", ".join(r["side"] for r in runs) + ")")
 
-            resize(1)
+            distinct = distinct_requests(cfg, weights)
+            distinct_lone = lone_drain("lone, one request a bucket", distinct)
             retired0 = fleet.retired
             n_before = len(builds)
             scale, launches = fleet_run(under_load)
@@ -1376,17 +1681,17 @@ def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
                 "WorkUnit", S.SERVING_NS, copy=False))
             assert fleet.retired - retired0 == 2, fleet.retired
             assert fleet.live_replicas() == 1 and units == ["engine-0"], units
-            assert len(builds) == n_before + 2
+            assert len(builds) == n_before + 3
             for r in scale:
                 report(r)
-            print(f"fleet {cfg.name} 1 -> 2 -> 3 -> 1: launches {launches}; "
+            print(f"fleet {cfg.name} 0 -> 2 -> 3 -> 1: launches {launches}; "
                   f"retired {fleet.retired} in all, 2 in this run; units "
                   f"{units}")
             replicas = {}
-            for b in builds[n_before - 1:]:
+            for b in builds[n_before:]:
                 engine = b["engine"]
                 replicas[labels[engine]] = engine.counters()
-                print(f"fleet {cfg.name} 1 -> 2 -> 3 -> 1: {labels[engine]} "
+                print(f"fleet {cfg.name} 0 -> 2 -> 3 -> 1: {labels[engine]} "
                       f"counters {engine.counters()}, decode step median "
                       f"{float(np.median(step_ms[engine] or [0])):.2f} ms")
             t_exit = time.monotonic()
@@ -1406,7 +1711,7 @@ def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
         "max_len": 1024, "spawns": spawns,
         "drains": [{k: v for k, v in r.items() if k not in drop}
                    for r in runs],
-        "scale_1_2_3_1": {"runs": [{k: v for k, v in r.items()
+        "scale_0_2_3_1": {"runs": [{k: v for k, v in r.items()
                                     if k not in drop} for r in scale],
                           "launches": launches, "retired": fleet.retired,
                           "replicas": replicas},
@@ -1419,7 +1724,8 @@ def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
 def gc_probe(cfg):
     """Time one full ``gc.collect()`` in this process (it holds the
     interpreter lock throughout), and say whether ``torch.cuda.graph``
-    runs one at the start of every capture, as a replica's factory does."""
+    would run one at the start of every capture (the engine drives
+    ``capture_begin`` itself, which runs none)."""
     import inspect
     enter = inspect.getsource(torch.cuda.graph.__enter__)
     at_capture = "gc.collect()" in enter and (
@@ -1498,7 +1804,8 @@ def warmup_prompt(cfg):
 
 def free_card():
     gc.collect()
-    torch.cuda.empty_cache()
+    with CAPTURE_LOCK:
+        torch.cuda.empty_cache()
 
 
 def profile_decode(cfg, engine, batcher, label, n_steps=4):
@@ -1512,14 +1819,14 @@ def profile_decode(cfg, engine, batcher, label, n_steps=4):
     for _ in range(engine.slots):
         batcher.submit(rng.integers(0, cfg.vocab, 64), max_new_tokens=16)
     batcher.pump()                       # admission + first step, untraced
-    torch.cuda.synchronize()
+    sync()
     steps0 = engine.steps
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             batcher.pump()
-        torch.cuda.synchronize()
+        sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     assert engine.steps - steps0 == n_steps
     batcher.run_until_drained()
@@ -1577,13 +1884,13 @@ def profile_admit(cfg, engine, rng, n_req=4, length=512, match="attn_fwd",
                 for i in range(n_req)]
 
     engine.admit_many(reqs(10_000))
-    torch.cuda.synchronize()
+    sync()
     calls0 = engine.admit_calls
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         done = engine.admit_many(reqs(20_000))
-        torch.cuda.synchronize()
+        sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
     assert engine.admit_calls - calls0 == 1 and all(r.done for r in done)
     per_name = device_ms_by_name(prof)
@@ -1693,13 +2000,39 @@ def main() -> int:
                  compute_dtype=torch.float32)
     free_card()
 
+    gemma2 = get_config("gemma2-9b")
+    capped = ("logits under gemma2's final softcap of 30, before it of std "
+              "~60 (a tied table of stddev 1 against a unit-RMS state), "
+              "rounded to bf16 (an ulp is 0.25 at 32-64); the few-ulp "
+              "differences that move qwen2-7b's logits of std 0.88 by ~0.02 "
+              "move these by up to ~1.5 where the cap passes them: a tenth "
+              "of the cap")
+    parity_phase(gemma2, 2, 3.0, capped)
+    parity_phase(gemma2, 2, 0.05,
+                 "fp32 compute and cache, bf16 weights: the fp32 kernels and "
+                 "the plain versions sum in other orders (~1e-6 relative), "
+                 "logits of scale 30", compute_dtype=torch.float32)
+    window_phase(gemma2, 3.0, capped)
+    free_card()
+
     by_path = {"grouped_gemm op, dropless MoE experts at "
                + ", ".join(MOE_CONFIGS): gg_path}
     by_path["qwen2-7b"], (params, lone) = serving_phase(
         qwen2, kernels, n_req=24, max_new=32, profile_admits=True)
+    by_path["qwen2-7b admission A/B"] = admission_ab(
+        qwen2, kernels, params, n_req=24, max_new=32)
+    free_card()
     by_path["fleet qwen2-7b"] = fleet_phase(qwen2, kernels, params, lone,
                                             n_req=24, max_new=32)
     del params, lone
+    free_card()
+    by_path["gemma2-9b"], (params, engine) = serving_phase(
+        gemma2, kernels, n_req=24, max_new=32)
+    del engine
+    free_card()
+    by_path["gemma2-9b max_len 8192"] = long_window_drain(gemma2, kernels,
+                                                          params)
+    del params
     free_card()
     by_path["rwkv6-7b"] = serving_phase(
         rwkv6, kernels, n_req=24, max_new=32,

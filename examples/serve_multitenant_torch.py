@@ -12,9 +12,11 @@ registry (where the autoscaler's engine-replica actuator reads them).
     PYTHONPATH=src python examples/serve_multitenant_torch.py               # the card
     PYTHONPATH=src python examples/serve_multitenant_torch.py --device cpu
 
-On the card each replica captures its decode step as one CUDA graph (and
-the first call builds the kernels with ``nvcc``); on the CPU it runs the
-plain versions at fp32. Both use the reference's reduced qwen2-7b.
+On the card each replica captures its decode step, and each admission
+shape it meets, as CUDA graphs (the first call builds the kernels with
+``nvcc``); the two replicas spawn at once, their captures taking turns. On
+the CPU it runs the plain versions at fp32. Both use the reference's
+reduced qwen2-7b.
 """
 import argparse
 import time
@@ -41,7 +43,7 @@ def main():
     fleet = ServingFleet(
         lambda: GenerationEngine(cfg, params, slots=4, max_len=64,
                                  compute_dtype=dtype, device=device),
-        replicas=1, scan_interval=0.1)
+        replicas=2, scan_interval=0.1)
 
     fw = VirtualClusterFramework(num_nodes=2, scan_interval=0.0,
                                  heartbeat_interval=3600)
@@ -53,12 +55,8 @@ def main():
         steady = fw.add_tenant("steady", weight=2)
         fleet.register_tenant(bursty)
         fleet.register_tenant(steady)
-        # one spawn at a time: on the card two engines that capture their
-        # decode graphs at once both fail (ROADMAP.md, section 3)
-        for n in (1, 2):
-            fleet.resize(n)
-            while fleet.live_replicas() < n:
-                time.sleep(0.01)
+        while fleet.live_replicas() < 2:
+            time.sleep(0.01)
         for u in fw.super_api.list("WorkUnit", "vc-serving"):
             print(f"[fleet] {u.metadata.name} scheduled on "
                   f"{u.status.node or '?'} ({device})")

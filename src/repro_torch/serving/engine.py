@@ -15,14 +15,23 @@ for attention layers, fp32 states for recurrent ones):
   their state, so those bucket by exact length.
 - **fused decode** — one step over all slots that advances every active
   slot and computes done-flags on the device, so the host syncs ONCE per
-  step instead of once per slot. On the card the step is ONE CUDA graph
-  (the port of the reference's ``_compiled``, a ``jax.jit`` with donated
-  buffers): captured once per engine in ``__init__`` and replayed by every
-  ``step()``. The graph binds this engine's cache and slot state, so both
-  are static buffers that every call writes in place. The step's body is
-  one function, ``_step``, run eagerly on the CPU (where the tests cover
-  it) and captured on the card; ``cuda_graph=False`` asks for the eager
-  step on the card.
+  step instead of once per slot.
+
+On the card both calls are CUDA graphs, the port of the reference's
+``_compiled`` (``jax.jit`` of the admit and of the step, traced once per
+shape). The step is ONE graph, captured in ``__init__`` and replayed by
+every ``step()``. Admission is one graph per (rows, bucket) shape,
+captured lazily after that shape's first call, which runs eagerly and is
+the capture's warm-up, and replayed by every later call of the shape; the
+graphs of one engine share one memory pool. Engines with "m"/"r" layers
+admit eagerly: they bucket by exact prompt length, so a graph per length
+would be a graph per request. Each graph binds this engine's cache, slot
+state and input buffers, so all of them are static buffers that every call
+writes in place. The bodies, ``_step`` and ``_admit_staged``, run eagerly
+on the CPU (where the tests cover them) and are captured on the card;
+``cuda_graph=False`` asks for both calls eagerly on the card. Every
+capture holds the process's ``CAPTURE_LOCK`` (``repro_torch.device``), so
+engines built or driven on several threads capture one at a time.
 
 Slot state (lengths, token budgets, active mask, last token per slot) lives
 on the device between calls; the host keeps only the request objects and a
@@ -37,12 +46,12 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..device import DeviceLike, resolve_device
+from ..device import CAPTURE_LOCK, DeviceLike, resolve_device
 from ..kernels._build import record_launches
 from ..models import decode_step, init_cache, prefill
 from ..models.config import ModelConfig
@@ -70,17 +79,57 @@ def _same_device(t: torch.Tensor, dev: torch.device) -> bool:
                                           or t.device.index == dev.index)
 
 
+def _capture_graph(body: Callable[[], Any], stream: "torch.cuda.Stream", *,
+                   pool=None, warmup: Optional[Callable[[], Any]] = None
+                   ) -> Tuple["torch.cuda.CUDAGraph", Dict[Any, int]]:
+    """Capture ``body()`` as one CUDA graph on ``stream``, into ``pool``
+    (a ``torch.cuda.graph_pool_handle()``; None: a pool of its own), after
+    ``warmup()`` on the same stream. Returns the graph and the kernel
+    launches it recorded, which whoever replays it adds at each replay.
+
+    The whole of it holds ``CAPTURE_LOCK``: the allocator's and CUDA's
+    capture state allow one capture at a time in a process, and a
+    device-wide sync on another thread during a capture is refused. It
+    drives ``capture_begin``/``capture_end`` itself, with no sync at all (a
+    capture only records), instead of ``torch.cuda.graph``, which begins
+    every capture with a device-wide sync and a release of the allocator's
+    cached blocks: the sync would wait for every other engine's queued
+    work, and the release would drop the blocks that every engine's eager
+    calls reuse (each freed segment syncs the device again). The price: a
+    graph's pool is new memory, so a capture with the card nearly full
+    raises where a release might have made room.
+    ``capture_error_mode="thread_local"`` leaves other threads free to
+    allocate, launch and sync their own streams meanwhile."""
+    with CAPTURE_LOCK:
+        current = torch.cuda.current_stream(stream.device)
+        stream.wait_stream(current)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream):
+            if warmup is not None:
+                warmup()
+            with record_launches() as launches:
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    body()
+                finally:
+                    graph.capture_end()
+        current.wait_stream(stream)
+    return graph, launches
+
+
 class GenerationEngine:
     """Slot-based engine: fused bucketed admission, joint decode.
 
     NOT thread-safe by itself: exactly one drive thread may call
     ``admit_many``/``step``; put a :class:`ContinuousBatcher` in front for
-    concurrent submitters. Engines driven by different threads may capture
-    and step at the same time. ``device=None`` means the card; pass
-    ``device="cpu"`` (with CPU parameters) to run on the CPU.
-    ``cuda_graph`` (default: on the card, yes) replays the decode step as
-    one captured CUDA graph; ``False`` runs it eagerly, and ``True`` off
-    the card raises. A capture that fails raises too.
+    concurrent submitters. Engines may be built and driven on different
+    threads at the same time: their captures take turns. ``device=None``
+    means the card; pass ``device="cpu"`` (with CPU parameters) to run on
+    the CPU. ``cuda_graph`` (default: on the card, yes) replays the decode
+    step, and for attention-only patterns each admission shape, as
+    captured CUDA graphs; ``False`` runs both eagerly, and ``True`` off the
+    card raises. A capture that fails raises too.
     """
 
     def __init__(self, cfg: ModelConfig, params: Any, *, slots: int = 4,
@@ -110,6 +159,7 @@ class GenerationEngine:
                                    device=self.device)
         self._last = torch.zeros((slots, 1), **i32)
         self._out = torch.zeros((2, slots), **i32)     # a step's tokens, done
+        self._first = torch.zeros((slots,), **i32)     # an admit's first tokens
         # host mirrors (authoritative for slot occupancy)
         self.lengths = np.zeros((slots,), np.int32)
         self.slot_req: List[Optional[Request]] = [None] * slots
@@ -121,9 +171,17 @@ class GenerationEngine:
         self.admitted = 0               # requests admitted
         self.full_cache_copies = 0      # whole-cache copies: stays 0
         self.host_syncs = 0             # device->host transfers
+        self._admit_replays = 0         # admit calls that replayed a graph
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._graph_launches: Dict[Any, int] = {}
-        if cuda_graph is not False and on_card:
+        # (rows, bucket) -> (static inputs, graph, recorded launches)
+        self._admit_graphs: Dict[Tuple[int, int], Tuple[Any, Any, Any]] = {}
+        graphed = cuda_graph is not False and on_card
+        # exact-length buckets would make a graph per request: eager there
+        self._graph_admit = graphed and not self._exact_buckets
+        if graphed:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._admit_pool = torch.cuda.graph_pool_handle()
             self._capture()
 
     # -- slots -------------------------------------------------------------
@@ -167,6 +225,23 @@ class GenerationEngine:
         return first
 
     @torch.inference_mode()
+    def _admit_staged(self, buf: torch.Tensor, k: int,
+                      pad_len: int) -> torch.Tensor:
+        """``_admit`` on one flat int32 buffer, as ``admit_many`` stages a
+        call with its one host-to-device copy: ``k`` right-padded prompts
+        [k, pad_len], then the slot indices, true lengths and token budgets,
+        ``k`` each. The first token per row goes into the engine's
+        ``_first`` buffer, and a view of it is returned. This is the body
+        an admission graph captures: its inputs are the graph's static
+        buffer and its result outlives the replay outside the graph's
+        memory pool."""
+        n = k * pad_len
+        first = self._admit(buf[:n].view(k, pad_len), buf[n:n + k].long(),
+                            buf[n + k:n + 2 * k], buf[n + 2 * k:n + 3 * k])
+        self._first[:k].copy_(first)
+        return self._first[:k]
+
+    @torch.inference_mode()
     def _step(self) -> torch.Tensor:
         """One decode step over every slot; inactive slots are masked out.
 
@@ -199,23 +274,47 @@ class GenerationEngine:
         """Capture ``_step`` as this engine's CUDA graph, while every slot
         is inactive. A warm-up step on the capture stream first creates the
         cuBLAS handles and loads every kernel library the step launches;
-        with no active slot it changes no slot's length or budget.
+        with no active slot it changes no slot's length or budget. The
+        wrappers' launch counts are recorded, not counted, and ``step()``
+        adds them at every replay."""
+        self._graph, self._graph_launches = _capture_graph(
+            self._step, self._capture_stream, warmup=self._step)
 
-        ``capture_error_mode="thread_local"`` leaves other threads free to
-        allocate and sync while this one captures (another engine's drive
-        thread). The wrappers' launch counts are recorded, not counted, and
-        ``step()`` adds them at every replay."""
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(stream):
-            self._step()
-        graph = torch.cuda.CUDAGraph()
-        with record_launches() as launches:
-            with torch.cuda.graph(graph, stream=stream,
-                                  capture_error_mode="thread_local"):
-                self._step()
-        torch.cuda.current_stream(self.device).wait_stream(stream)
-        self._graph, self._graph_launches = graph, launches
+    def _admit_eagerly(self, buf: torch.Tensor, k: int,
+                       pad_len: int) -> torch.Tensor:
+        """One admit call without a graph. Where this engine graphs its
+        admission, the call is a shape's first, and so its capture's
+        warm-up: it runs on the capture stream, where the drive thread's
+        cuBLAS handle gets its workspace for that stream outside any graph
+        pool (the capture itself would otherwise allocate it in the pool,
+        to stay there)."""
+        if not self._graph_admit:
+            return self._admit_staged(buf, k, pad_len)
+        current = torch.cuda.current_stream(self.device)
+        self._capture_stream.wait_stream(current)
+        with torch.cuda.stream(self._capture_stream):
+            first = self._admit_staged(buf, k, pad_len)
+        current.wait_stream(self._capture_stream)
+        return first
+
+    def _capture_admit(self, k: int, pad_len: int) -> None:
+        """Capture ``_admit_staged`` for ``k`` rows of ``pad_len`` tokens,
+        bound to a static input buffer of its own, into the pool that all
+        of this engine's admission graphs share. A capture only records, so
+        no slot is touched. Nothing of a replay outlives it in the pool
+        (the row cache and activations are dead by its end; the first
+        tokens go to ``_first``), so each capture may reuse all of the pool,
+        and the pool is the largest graph's working set: at qwen2-7b's
+        8 rows x 1023 tokens, 8 slots and max_len 1024, a 0.47 GB row cache
+        and about 2 GB of activations, the SwiGLU's at 0.31 GB a bf16 and
+        0.62 GB an fp32 intermediate. The graphs are replayed by the one
+        drive thread, one at a time."""
+        inputs = torch.zeros((k * pad_len + 3 * k,), dtype=torch.int32,
+                             device=self.device)
+        graph, launches = _capture_graph(
+            lambda: self._admit_staged(inputs, k, pad_len),
+            self._capture_stream, pool=self._admit_pool)
+        self._admit_graphs[(k, pad_len)] = (inputs, graph, launches)
 
     # -- admission ---------------------------------------------------------
 
@@ -223,7 +322,10 @@ class GenerationEngine:
         """Admit up to ``len(free_slots())`` requests, one fused call (and
         one host sync) per prompt-length bucket. Returns the requests
         admitted; those with ``done`` set finished at admission (their
-        single-token budget was spent by the prefill)."""
+        single-token budget was spent by the prefill). Where admission is
+        graphed, a (rows, bucket) shape seen before replays its graph; a
+        new one runs eagerly and is captured once its requests are
+        booked."""
         free = self.free_slots()
         take = list(reqs[:len(free)])
         if not take:
@@ -251,13 +353,20 @@ class GenerationEngine:
                 true_len[j] = p.shape[0]
                 max_new[j] = max(1, int(r.max_new_tokens))
             # one host-to-device copy of everything the call needs
-            buf = torch.from_numpy(np.concatenate(
-                [prompts.reshape(-1), idx, true_len, max_new])).to(self.device)
-            n_tok = k * pad_len
-            first = self._admit(buf[:n_tok].view(k, pad_len),
-                                buf[n_tok:n_tok + k].long(),
-                                buf[n_tok + k:n_tok + 2 * k],
-                                buf[n_tok + 2 * k:])
+            host = torch.from_numpy(np.concatenate(
+                [prompts.reshape(-1), idx, true_len, max_new]))
+            graphed = (self._admit_graphs.get((k, pad_len))
+                       if self._graph_admit else None)
+            if graphed is None:
+                first = self._admit_eagerly(host.to(self.device), k, pad_len)
+            else:
+                inputs, graph, launches = graphed
+                inputs.copy_(host)
+                graph.replay()
+                for kernel, count in launches.items():
+                    kernel.add_launches(count)
+                self._admit_replays += 1
+                first = self._first[:k]
             first_np = first.cpu().numpy()
             self.host_syncs += 1
             self.admit_calls += 1
@@ -274,6 +383,8 @@ class GenerationEngine:
                 else:
                     self.slot_req[slot] = r
                     self.lengths[slot] = int(true_len[j])
+            if graphed is None and self._graph_admit:
+                self._capture_admit(k, pad_len)
         return take
 
     def admit(self, req: Request) -> bool:

@@ -21,11 +21,12 @@ package, at fp32 on the CPU, on weights carried across by
   request, as ``pump`` does);
 - requests in flight on a retiring replica finish: none is dropped.
 
-On the card (marker ``cuda``; skipped without one): a 2-replica fleet of a
-reduced config, where the second replica captures its decode graph on a
-pool thread of the framework's executor while the first steps; the 0 -> 1
-order identity against a lone graphed engine; the kernels' launches equal
-to the per-replica sum.
+On the card (marker ``cuda``; skipped without one): a fleet of a reduced
+config started at 2 replicas, both built (their graphs captured) at once on
+pool threads of the framework's executor while the main thread syncs the
+device under the capture lock; requests of distinct buckets get a lone
+graphed engine's tokens; a third replica built while the others step; the
+kernels' launches equal to the per-replica sum.
 
 Tokens are compared exactly (greedy argmax at fp32; on the card both sides
 are the same graphed bf16 engine on the same weights).
@@ -47,6 +48,7 @@ from repro_torch.core import (APIServer, Autoscaler, CooperativeExecutor,
                               ScalingPolicy, Syncer, TenantControlPlane,
                               VirtualClusterFramework, WorkUnit)
 from repro_torch.core.agent import MockProvider
+from repro_torch.device import CAPTURE_LOCK
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_decode import kernel as fd_kernel
 from repro_torch.kernels.grouped_gemm import kernel as gg_kernel
@@ -512,22 +514,30 @@ def _expected_launches(cfg, engine):
 
 @pytest.mark.cuda
 def test_fleet_on_the_card(cuda):
-    """A graphed fleet of reduced qwen2-7b on the card. 0 -> 1: tokens and
-    counters of a lone graphed engine on the same weights. 1 -> 2 under
-    load: engine-1's factory (its capture) runs on a pool thread of the
-    framework's executor while engine-0 steps on its drive thread. Each
-    kernel's launches over the fleet's run equal the sum over replicas."""
+    """A graphed fleet of reduced qwen2-7b on the card, started at 2
+    replicas as the reference's fleet test starts: both replicas spawn at
+    once on pool threads of the framework's executor (their captures take
+    turns under ``CAPTURE_LOCK``), while the main thread syncs the device
+    under the lock without waiting for their units' ``Ready``. Requests of
+    distinct buckets, so one row an admit call whichever replica takes
+    them, get a lone graphed engine's tokens. Then, under load, a third
+    replica is built (its decode graph captured) on a pool thread while the
+    others step. Each kernel's launches over the fleet's run equal the sum
+    over its replicas."""
     cfg = reduced(get_config("qwen2-7b"), n_layers=2)
     params = init_params(cfg, generator=torch.Generator(device=cuda).manual_seed(7),
                          device=cuda, dtype=torch.bfloat16)
-    reqs = _requests(cfg.vocab, 12, seed=5, lengths=(3, 7, 12, 20, 30))
+    # buckets 8, 16, 32 and 47: one request a bucket
+    rng = np.random.default_rng(5)
+    reqs = [(list(WEIGHTS)[i % 3], rng.integers(0, cfg.vocab, n), 6)
+            for i, n in enumerate((5, 12, 20, 40))]
     builds, steps = [], []
 
     def factory():
         t0 = time.monotonic()
         engine = GenerationEngine(cfg, params, slots=4, max_len=MAX_LEN,
                                   device=cuda)
-        builds.append((threading.current_thread().name, t0,
+        builds.append((engine, threading.current_thread().name, t0,
                        time.monotonic()))
         step = engine.step
 
@@ -540,7 +550,72 @@ def test_fleet_on_the_card(cuda):
 
     lone = GenerationEngine(cfg, params, slots=4, max_len=MAX_LEN,
                             device=cuda)
-    assert lone._graph is not None
+    assert lone._graph is not None and lone._graph_admit
+    want = _lone(lone, reqs)
+    assert lone.admit_calls == len(reqs)
+    fleet = ServingFleet(factory, replicas=2, scan_interval=0.05)
+    fw = VirtualClusterFramework(num_nodes=2, scan_interval=0.0,
+                                 heartbeat_interval=3600)
+    fleet.attach(fw)
+    for k in KERNELS:
+        k.launches = 0
+    with fw:
+        for tenant, w in WEIGHTS.items():
+            fleet.register_tenant(fw.add_tenant(tenant, weight=w))
+        syncs = 0
+        while fleet.live_replicas() < 2 or syncs == 0:
+            with CAPTURE_LOCK:      # both replicas may be capturing now
+                torch.cuda.synchronize()
+            syncs += 1
+            time.sleep(0.001)
+        uids = [fleet.submit(t, p, max_new_tokens=n) for t, p, n in reqs]
+        done = fleet.wait_completed(len(uids), timeout=120)
+        assert [done[u].tokens for u in uids] == want
+        assert wait_for(lambda: [u.status.phase for u in fw.super_api.list(
+            "WorkUnit", SERVING_NS)] == ["Ready", "Ready"], timeout=120)
+        # keep both busy (40 requests of 32 tokens on 8 slots), then grow:
+        # engine-2 is built meanwhile
+        rng = np.random.default_rng(6)
+        more = [fleet.submit("tenant-a", rng.integers(0, cfg.vocab, 8),
+                             max_new_tokens=32) for _ in range(40)]
+        assert wait_for(lambda: sum(b[0].active_slots() for b in builds) > 0,
+                        timeout=60)
+        fleet.resize(3)
+        done = fleet.wait_completed(len(uids) + len(more), timeout=300)
+        assert wait_for(lambda: fleet.live_replicas() == 3, timeout=120)
+        with CAPTURE_LOCK:
+            torch.cuda.synchronize()
+        launches = {k.name: k.launches for k in KERNELS}
+    assert all(done[u].done and len(done[u].tokens) == 32 for u in more)
+    assert len(builds) == 3
+    assert all(name.startswith("vc-exec") for _, name, _, _ in builds), builds
+    third, _, t0, t1 = builds[2]
+    assert any(e is not third and t0 <= t <= t1 for e, t in steps), \
+        "no replica stepped while engine-2 was built"
+    want_launches = {"flash_attention": 0, "flash_decode": 0,
+                     "rwkv6_scan": 0, "mamba_scan": 0, "grouped_gemm": 0}
+    for engine, _, _, _ in builds:
+        for name, n in _expected_launches(cfg, engine).items():
+            want_launches[name] += n
+    assert launches == want_launches
+
+
+@pytest.mark.cuda
+def test_zero_to_one_resize_matches_lone_on_the_card(cuda):
+    """A 0 -> 1 resize under a backlog on the card gives a lone graphed
+    engine's tokens and counters (admission groups, admit calls, steps),
+    admission graphs included: the replica's first ``take`` sees every
+    request, as ``pump`` does."""
+    cfg = reduced(get_config("qwen2-7b"), n_layers=2)
+    params = init_params(cfg, generator=torch.Generator(device=cuda).manual_seed(7),
+                         device=cuda, dtype=torch.bfloat16)
+    reqs = _requests(cfg.vocab, 12, seed=5, lengths=(3, 7, 12, 20, 30))
+
+    def factory():
+        return GenerationEngine(cfg, params, slots=4, max_len=MAX_LEN,
+                                device=cuda)
+
+    lone = factory()
     want = _lone(lone, reqs)
     fleet = ServingFleet(factory, replicas=0, scan_interval=0.05)
     fw = VirtualClusterFramework(num_nodes=2, scan_interval=0.0,
@@ -549,38 +624,49 @@ def test_fleet_on_the_card(cuda):
     with fw:
         for tenant, w in WEIGHTS.items():
             fleet.register_tenant(fw.add_tenant(tenant, weight=w))
-        for k in KERNELS:
-            k.launches = 0
         tokens, first = _zero_to_one(fw, fleet, reqs)
-        assert tokens == want
-        assert first.counters() == lone.counters()
-        # keep engine-0 busy (40 requests of 32 tokens on 4 slots), then
-        # grow: engine-1 captures meanwhile
-        rng = np.random.default_rng(6)
-        uids = [fleet.submit("tenant-a", rng.integers(0, cfg.vocab, 8),
-                             max_new_tokens=32) for _ in range(40)]
-        assert wait_for(lambda: first.active_slots() > 0, timeout=60)
-        fleet.resize(2)
-        done = fleet.wait_completed(len(reqs) + len(uids), timeout=300)
-        # a device-wide synchronize while a capture runs on another thread
-        # is refused by CUDA: wait for engine-1's unit first
+    assert tokens == want
+    assert first.counters() == lone.counters()
+    assert first._admit_graphs.keys() == lone._admit_graphs.keys()
+
+
+@pytest.mark.cuda
+def test_fleet_grows_zero_to_three_in_one_resize(cuda):
+    """0 -> 3 replicas in one resize under a backlog of one request per
+    bucket: the three engines are built at once on pool threads (their
+    captures in turn) while the main thread syncs the device under the
+    capture lock; all three units reach ``Ready``, and each request's
+    tokens are a lone graphed engine's."""
+    cfg = reduced(get_config("qwen2-7b"), n_layers=2)
+    params = init_params(cfg, generator=torch.Generator(device=cuda).manual_seed(8),
+                         device=cuda, dtype=torch.bfloat16)
+    rng = np.random.default_rng(9)
+    reqs = [(list(WEIGHTS)[i % 3], rng.integers(0, cfg.vocab, n), 6)
+            for i, n in enumerate((5, 12, 20, 40))]
+
+    def factory():
+        return GenerationEngine(cfg, params, slots=4, max_len=MAX_LEN,
+                                device=cuda)
+
+    want = _lone(factory(), reqs)
+    fleet = ServingFleet(factory, replicas=0, scan_interval=0.05)
+    fw = VirtualClusterFramework(num_nodes=2, scan_interval=0.0,
+                                 heartbeat_interval=3600)
+    fleet.attach(fw)
+    with fw:
+        for tenant, w in WEIGHTS.items():
+            fleet.register_tenant(fw.add_tenant(tenant, weight=w))
+        uids = [fleet.submit(t, p, max_new_tokens=n) for t, p, n in reqs]
+        fleet.resize(3)
+        while fleet.live_replicas() < 3:
+            with CAPTURE_LOCK:
+                torch.cuda.synchronize()
+            time.sleep(0.001)
+        done = fleet.wait_completed(len(uids), timeout=120)
         assert wait_for(lambda: [u.status.phase for u in fw.super_api.list(
-            "WorkUnit", SERVING_NS)] == ["Ready", "Ready"], timeout=120)
-        torch.cuda.synchronize()
-        second = fleet.replica(f"{SERVING_NS}/engine-1").engine
-        launches = {k.name: k.launches for k in KERNELS}
-    assert all(done[u].done and len(done[u].tokens) == 32 for u in uids)
-    assert len(builds) == 2
-    assert all(name.startswith("vc-exec") for name, _, _ in builds), builds
-    _, t0, t1 = builds[1]
-    assert any(e is first and t0 <= t <= t1 for e, t in steps), \
-        "engine-0 did not step while engine-1 captured"
-    want_launches = {"flash_attention": 0, "flash_decode": 0,
-                     "rwkv6_scan": 0, "mamba_scan": 0, "grouped_gemm": 0}
-    for engine in (first, second):
-        for name, n in _expected_launches(cfg, engine).items():
-            want_launches[name] += n
-    assert launches == want_launches
+            "WorkUnit", SERVING_NS)] == ["Ready"] * 3, timeout=120)
+    assert [done[u].tokens for u in uids] == want
+    assert fleet.spawned == 3
 
 
 def test_example_serves_on_the_cpu():
