@@ -31,7 +31,27 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    product against the plain version, a skewed case with empty groups, and
    olmoe's capacity buffer against ``_moe_local``'s own einsum. Each
    decode and grouped GEMM row names the kernel the call took;
-4. parity: the same seeded bf16 weights through the kernels and through
+4. training, on attention-only layers: the prefill kernel's forward with
+   its log-sum-exp against ``_mha_torch``'s (out, lse) at qwen2-7b's
+   train_4k (B 2, S 4096), at gemma2-9b's heads (B 1, S 5000, D 256,
+   window 4096 binding, softcap 50) and in fp32; ``MhaFunction``'s
+   dq/dk/dv through the kernel against the same backward on the plain
+   forward, and against "ref" autograd at B 1, S 300; the forward's time
+   with and without the lse, the PyTorch backward's, and SDPA's forward
+   plus backward beside them (``train_kernel {...}``). Then qwen2-7b at
+   full width cut to 8 of its 28 layers with fp32 masters (2.98 B
+   parameters; 28 layers would need ~123 GB): loss and gradient norm
+   through the kernel against the plain path before any update, then 6
+   steps of 16,384 tokens (batch 4 as 2 microbatches of 2, seq 4096) on
+   one repeated batch, the loss falling, 32 prefill-attention launches a
+   step (8 layers x 2 microbatches x forward and remat recompute), step
+   ms, tokens/s, share of the bf16 peak, peak memory (``train_step
+   {...}``) and one profiled step (``train_profile {...}``). Then
+   ``examples/train_tenant_job_torch.py``'s ``100m`` preset through a live
+   ``VirtualClusterFramework``: 3 units of 5 steps, each saving a
+   checkpoint, every unit ``Ready``, the last checkpoint restored bit for
+   bit (``train_tenant ...``);
+5. parity: the same seeded bf16 weights through the kernels and through
    the plain versions, prefill of 2 ragged prompts plus 4 decode steps,
    logits compared: qwen2-7b, rwkv6-7b and gemma2-9b at full width with 2
    layers (gemma2 also in fp32, and at prompts of 5000 and 4500 tokens in a
@@ -39,7 +59,7 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    window's effect shown by a run without it: ``window_phase``),
    jamba-v0.1-52b at full width with one period of 8 layers, in bf16 and
    once more in fp32 (compute and cache);
-5. serving: each model behind ``ContinuousBatcher`` with 3 WRR tenants
+6. serving: each model behind ``ContinuousBatcher`` with 3 WRR tenants
    (weights 1, 1, 2) and seeded bf16 weights, served by two engines on
    the same weights in one process: the default one, whose decode step is
    one CUDA graph captured in its constructor and whose admission is one
@@ -70,11 +90,11 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    decode went through the kernels (a graph's replay adds the launches its
    capture recorded), and the decode steps through the tensor-core decode
    kernel;
-6. admission, after qwen2-7b's serving phase, on its weights: graphed
+7. admission, after qwen2-7b's serving phase, on its weights: graphed
    against eager admission on one engine with the graphed step
    (``admission_ab``: lines ``admission qwen2-7b ...`` and
    ``admission_ab {...}``);
-7. fleet, on the same weights: the same requests through the control
+8. fleet, on the same weights: the same requests through the control
    plane, tenants of a live ``VirtualClusterFramework`` served by a
    ``ServingFleet`` of graphed qwen2-7b replicas on the one card
    (WorkUnits placed by the SuperScheduler, engines built by the node
@@ -1924,6 +1944,321 @@ def profile_scan_admit(cfg, engine, rng, kernel, old, match):
               f"admit call wall {wall:.2f} ms")
 
 
+TRAIN_SHAPES = [
+    # label, B, S, H, KV, D, window, softcap, dtype, tolerance
+    ("qwen2-7b train_4k B2 S4096 H28 KV4 D128 bf16 causal", 2, 4096, 28, 4,
+     128, 0, 0.0, torch.bfloat16, 2e-2),
+    ("gemma2-9b heads B1 S5000 H16 KV8 D256 bf16 causal window 4096 "
+     "softcap 50", 1, 5000, 16, 8, 256, 4096, 50.0, torch.bfloat16, 2e-2),
+    ("qwen2-7b heads B1 S1024 H28 KV4 D128 fp32 causal", 1, 1024, 28, 4, 128,
+     0, 0.0, torch.float32, 2e-5),
+]
+LSE_TOL = 1e-4   # fp32 statistics on both sides: summation order, SFU exp2
+GRAD_TOL = 2e-2  # of the gradient's largest magnitude: see check_grad
+
+
+def check_grad(name, got, want):
+    """Max abs error of a bf16 gradient within ``GRAD_TOL`` of the largest
+    |want|. The flash backward rounds p and ds to bf16 before its products
+    (as the reference does), so a forward that differs by an output ulp,
+    or the fp32 "ref" autograd, moves a gradient by an ulp or two of its
+    largest values (0.5% of the scale on the CPU at B 1, S 300)."""
+    assert torch.isfinite(got.float()).all()
+    scale = float(want.float().abs().max())
+    err = max_err(got, want)
+    print(f"check {name}: max_abs_err={err!r} of max |grad| {scale!r}")
+    check(f"{name} (relative to max |grad|)", err / scale, GRAD_TOL)
+
+
+def attn_train_bound(B, S, H, D, window):
+    """Forward: 4 D FLOP per attended (q, k) pair and head; backward: 10 D
+    (recomputed scores, dP, dQ, dK, dV), 2.5x the forward. Both bound by
+    the operations at training shapes."""
+    fwd = 4 * D * attn_pairs(S, S, True, window) * B * H
+    return fwd, 2.5 * fwd
+
+
+def train_kernel_phase(gen):
+    """Attention's training form on the card: the kernel's forward with
+    its lse (``return_lse``) against ``_mha_torch``'s (out, lse) at the
+    training shapes (``TRAIN_SHAPES``: qwen2-7b's train_4k, gemma2-9b's
+    heads at S 5000 where its window binds, and fp32), then
+    ``MhaFunction``'s dq/dk/dv with the kernel's forward against the same
+    backward on the plain forward (and, at B 1, S 300, against "ref"
+    autograd), then times: the kernel's forward with and without the lse,
+    the backward's device time, forward plus backward against SDPA's (qwen2
+    only: SDPA has no softcap), each beside its bound. Lines
+    ``train_kernel {...}``; returns the qwen2 row."""
+    from repro_torch.kernels.flash_attention.ops import (MhaFunction,
+                                                         _mha_bwd_torch,
+                                                         _mha_torch)
+    rows = []
+    for label, B, S, H, KV, D, window, softcap, dtype, tol in TRAIN_SHAPES:
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn((B, S, KV, D), generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        dout = torch.randn((B, S, H, D), generator=gen,
+                           device="cuda").to(dtype)
+        kw = dict(causal=True, window=window, softcap=softcap, scale=None,
+                  q_offset=0, q_chunk=1024, kv_chunk=1024)
+        fkw = dict(causal=True, window=window, softcap=softcap)
+        out, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **fkw)
+        ref, ref_lse = _mha_torch(q, k, v, **kw)
+        sync()
+        assert torch.isfinite(lse).all() and lse.shape == (B, S, H)
+        err = max_err(out, ref)
+        lse_err = max_err(lse.view(B, S, KV, H // KV), ref_lse)
+        check(f"flash_attention fwd {label}", err, tol)
+        check(f"flash_attention lse {label}", lse_err, LSE_TOL)
+        # gradients: the same backward on the kernel's forward and on the
+        # plain forward; only out and lse differ (by an output ulp)
+        grads = {}
+        for impl in ("cuda", "torch"):
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o = MhaFunction.apply(*leaves, impl, kw)
+            grads[impl] = torch.autograd.grad(o, leaves, dout)
+            del o, leaves
+        for name, a, b in zip(("dq", "dk", "dv"), grads["cuda"],
+                              grads["torch"]):
+            check_grad(f"MhaFunction {name} cuda vs torch forward {label}",
+                       a, b)
+        del grads, ref, ref_lse
+        fwd_flops, bwd_flops = attn_train_bound(B, S, H, D, window)
+        row = {"shape": label, "max_abs_err": err, "lse_max_abs_err": lse_err,
+               "tolerance": tol, "lse_tolerance": LSE_TOL,
+               "fwd_bound_ms": fwd_flops / PEAK_FLOPS["bfloat16"] * 1e3,
+               "bwd_bound_ms": bwd_flops / PEAK_FLOPS["bfloat16"] * 1e3,
+               "fwd_gflop": fwd_flops / 1e9}
+        if dtype == torch.bfloat16:
+            row["fwd_ms"] = graph_ms(lambda: fa_kernel.flash_attention(
+                q, k, v, **fkw))
+            row["fwd_lse_ms"] = graph_ms(lambda: fa_kernel.flash_attention(
+                q, k, v, return_lse=True, **fkw))
+            row["plain_fwd_ms"] = time_ms(lambda: _mha_torch(q, k, v, **kw),
+                                          iters=2, warmup=1)
+            lse4 = lse.view(B, S, KV, H // KV)
+            row["bwd_ms"] = graph_ms(lambda: _mha_bwd_torch(
+                q, k, v, out, lse4, dout, **kw), iters=2, replays=2)
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+            def mine():
+                o = MhaFunction.apply(*leaves, "cuda", kw)
+                torch.autograd.grad(o, leaves, dout)
+            row["fwd_bwd_ms"] = time_ms(mine, iters=3, warmup=1)
+            row["sdpa_fwd_ms"] = row["sdpa_fwd_bwd_ms"] = None
+            if softcap == 0.0 and window == 0:
+                qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                              for t in (q, k, v))
+                dt = dout.transpose(1, 2)
+                row["sdpa_fwd_ms"] = graph_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qt.detach(), kt.detach(), vt.detach(), is_causal=True,
+                        enable_gqa=True))
+
+                def sdpa():
+                    o = F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True, enable_gqa=True)
+                    torch.autograd.grad(o, (qt, kt, vt), dt)
+                row["sdpa_fwd_bwd_ms"] = time_ms(sdpa, iters=3, warmup=1)
+                del qt, kt, vt
+            del leaves
+        del out, lse
+        print("train_kernel " + json.dumps(row))
+        rows.append(row)
+        free_card()
+    # against "ref" autograd (materialized softmax, fp32) at B 1, S 300
+    q, k, v, dout = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+                     for shape in ((1, 300, 28, 128), (1, 300, 4, 128),
+                                   (1, 300, 4, 128), (1, 300, 28, 128)))
+    grads = {}
+    for impl in ("cuda", "ref"):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = mha(*leaves, impl=impl)
+        grads[impl] = torch.autograd.grad(o, leaves, dout)
+    for name, a, b in zip(("dq", "dk", "dv"), grads["cuda"], grads["ref"]):
+        check_grad(f"MhaFunction {name} cuda vs ref autograd B1 S300 H28 KV4 "
+                   "D128 bf16", a, b)
+    return rows[0]
+
+
+def train_phase(cfg, kernels, n_layers=8, steps=6, microbatches=2, batch=4,
+                seq=4096):
+    """qwen2-7b at full width, ``n_layers`` of its layers, fp32 masters
+    (parameters, gradients, m and v: 16 bytes a parameter), bf16 compute:
+    train_4k's sequence of 4096 at batch 4 as 2 microbatches of 2. First
+    the loss and the global gradient norm through the kernel against
+    ``impl="torch"`` on the same weights and batch (before any update),
+    then ``steps`` steps on one repeated batch (the loss must fall from
+    the first to the last), with step ms, tokens/s, the share of peak,
+    peak memory and flash_attention launches a step (the main path, its
+    counts read after the steps), then one profiled step. Returns the
+    path's launches."""
+    from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.training import (OptimizerConfig, compute_grads,
+                                      global_norm, make_opt_state,
+                                      make_train_step)
+    from repro_torch.training.optimizer import tree_leaves
+    full_layers = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = M.init_params(cfg, generator=gen, device="cuda",
+                           dtype=torch.float32)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    n_matmul = n_params - params["embed"]["table"].numel()
+    shape = ShapeConfig("train_4k", seq, batch, "train")
+    data = SyntheticTokens(cfg, shape, DataConfig(seed=SEED)).batch_at(0)
+    tokens = batch * seq
+    print(f"train {cfg.name}: {n_layers} of {full_layers} layers, "
+          f"{n_params / 1e9:.3f} "
+          f"B parameters ({n_matmul / 1e9:.3f} B outside the embedding), "
+          f"fp32 masters, batch {batch} x {seq} as {microbatches} "
+          f"microbatches, {tokens} tokens a step")
+    got = {}
+    for impl in ("cuda", "torch"):
+        loss, _, grads = compute_grads(cfg, params, data, remat=True,
+                                       microbatches=microbatches, impl=impl)
+        got[impl] = (float(loss), float(global_norm(grads)))
+        del grads
+        free_card()
+    (lc, nc), (lt, nt) = got["cuda"], got["torch"]
+    print(f"train {cfg.name}: before any update, loss {lc!r} (kernel) vs "
+          f"{lt!r} (plain), grad norm {nc!r} vs {nt!r}")
+    why = ("bf16 attention outputs differ by about an ulp between the two "
+           f"forwards; the loss is a mean over {tokens} tokens and the norm "
+           f"runs over {n_params / 1e9:.2f} B gradients, so both move far "
+           "less than that")
+    check(f"train loss kernel vs plain, relative ({why})",
+          abs(lc / lt - 1), 2e-3)
+    check("train grad norm kernel vs plain, relative", abs(nc / nt - 1), 2e-2)
+
+    # Adam's first steps move every parameter by about the learning rate,
+    # whatever its gradient: on this repeated batch a peak of 1e-4 swung
+    # the loss (12.5, 10.4, 14.0, 13.0, 8.4, 9.7 on the card), 3e-5 much
+    # less (12.5, 7.5, 8.6, 6.8, 5.3, 5.6)
+    opt_cfg = OptimizerConfig(peak_lr=3e-5, warmup_steps=2, total_steps=50)
+    step = make_train_step(cfg, opt_cfg, remat=True,
+                           microbatches=microbatches)
+    opt = make_opt_state(params)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, data)
+        loss = float(metrics["loss"])
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    launches = {k.name: k.launches for k in kernels}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    per_step = launches["flash_attention"] / steps
+    attn_layers = cfg.n_blocks * sum(cfg.layer_pattern.count(k) for k in "gl")
+    want = attn_layers * microbatches * 2      # forward and remat recompute
+    print(f"train {cfg.name}: losses {losses}, grad norm "
+          f"{float(metrics['grad_norm'])!r}, lr {float(metrics['lr'])!r}")
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert per_step == want, (launches, want)
+    assert all(n == 0 for name, n in launches.items()
+               if name != "flash_attention"), launches
+    ms = float(np.median(step_ms[1:]))
+    attn_fwd, attn_bwd = attn_train_bound(batch // microbatches, seq,
+                                          cfg.n_heads, cfg.head_dim, 0)
+    flops = (6 * n_matmul * tokens
+             + (attn_fwd + attn_bwd) * n_layers * microbatches)
+    peak_s = flops / PEAK_FLOPS["bfloat16"]
+    row = {"model": cfg.name, "layers": n_layers, "params": n_params,
+           "tokens_per_step": tokens, "step_ms": step_ms,
+           "step_ms_median": ms, "tokens_per_s": tokens / (ms / 1e3),
+           "model_tflop_per_step": flops / 1e12,
+           "peak_step_ms": peak_s * 1e3, "share_of_peak": peak_s / (ms / 1e3),
+           "peak_allocated_gb": peak_gb, "losses": losses,
+           "flash_attention_launches_per_step": per_step}
+    print("train_step " + json.dumps(row))
+
+    # one profiled step: device busy share, attention forward (kernel) and
+    # the PyTorch backward of attention (MhaFunctionBackward's kernels)
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, data)
+        float(metrics["loss"])
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_name = device_ms_by_name(prof)
+    busy = sum(t for _, t in per_name.values())
+    assert busy > 0, "the profiler recorded no device time"
+    attn_ms = sum(t for name, (_, t) in per_name.items() if "attn_fwd" in name)
+    bwd_ms = max((getattr(e, "device_time_total", 0.0) / 1e3
+                  for e in prof.key_averages()
+                  if "MhaFunctionBackward" in e.key), default=0.0)
+    prof_row = {"wall_ms": wall_ms, "busy_ms": busy,
+                "busy_share": busy / wall_ms,
+                "attention_fwd_kernel_ms": attn_ms,
+                "attention_fwd_kernel_share": attn_ms / busy,
+                "attention_bwd_torch_ms": bwd_ms,
+                "attention_bwd_torch_share": bwd_ms / busy}
+    print("train_profile " + json.dumps(prof_row))
+    for name, (n, t) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:8]:
+        print(f"train_profile:   {t:9.3f} ms {100 * t / busy:5.1f}%  {n:6d} "
+              f"launches  {name[:90]}")
+    del params, opt, metrics
+    free_card()
+    return launches
+
+
+def train_tenant_phase(kernels, units=3, steps_per_unit=5, preset="100m"):
+    """``examples/train_tenant_job_torch.py``'s ``100m`` preset (the
+    reference's preset for real hardware: 12 layers, d 768, 12 heads, KV
+    4, head dim 64, d_ff 2048, vocab 32768, seq 512, batch 8) through a
+    live ``VirtualClusterFramework``: ``units`` WorkUnits of
+    ``steps_per_unit`` train steps, each saving a checkpoint; every unit
+    must reach Ready, and the last checkpoint, restored into fresh tensors,
+    must equal the live state bit for bit. Returns the path's launches."""
+    import importlib.util
+    import tempfile
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    path = Path(__file__).resolve().parent / "examples" / \
+        "train_tenant_job_torch.py"
+    spec = importlib.util.spec_from_file_location("train_tenant_job_torch",
+                                                  path)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    for k in kernels:
+        k.launches = 0
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        t0 = time.monotonic()
+        out = example.run(preset, units=units, steps_per_unit=steps_per_unit,
+                          ckpt_dir=ckpt_dir, device="cuda",
+                          log=lambda m: print(f"train_tenant: {m}"))
+        wall = time.monotonic() - t0
+        launches = {k.name: k.launches for k in kernels}
+        for rec in out["units"]:
+            print("train_tenant_unit " + json.dumps(rec))
+        assert [r["phase"] for r in out["units"]] == ["Ready"] * units
+        live = (out["state"]["params"], out["state"]["opt"])
+        restored, step = out["mgr"].restore(
+            tuple(tree_map(torch.zeros_like, t) for t in live))
+        assert step == units * steps_per_unit
+        same = all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(restored[0]) + tree_leaves(restored[1]),
+            tree_leaves(live[0]) + tree_leaves(live[1])))
+        print(f"train_tenant: {units} units of {steps_per_unit} steps in "
+              f"{wall:.1f} s, losses {out['state']['losses']}; checkpoint "
+              f"of step {step} restored bit for bit: {same}")
+        assert same, "the restored checkpoint differs from the live state"
+    cfg = out["cfg"]
+    want = cfg.n_layers * 2 * units * steps_per_unit
+    assert launches["flash_attention"] == want, (launches, want)
+    del out, live, restored
+    free_card()
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1983,6 +2318,13 @@ def main() -> int:
     free_card()
 
     qwen2, rwkv6 = get_config("qwen2-7b"), get_config("rwkv6-7b")
+    train_kernel_phase(torch.Generator(device="cuda").manual_seed(SEED + 7))
+    free_card()
+    train_paths = {
+        "qwen2-7b train (8 layers, train_4k)": train_phase(qwen2, kernels),
+        "train_tenant 100m": train_tenant_phase(kernels)}
+    free_card()
+
     jamba = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=8)
     bf16_ulps = ("bf16 attention and scan outputs may differ by an ulp "
                  "between the two paths; through the layers that moves "
@@ -2016,7 +2358,7 @@ def main() -> int:
     free_card()
 
     by_path = {"grouped_gemm op, dropless MoE experts at "
-               + ", ".join(MOE_CONFIGS): gg_path}
+               + ", ".join(MOE_CONFIGS): gg_path, **train_paths}
     by_path["qwen2-7b"], (params, lone) = serving_phase(
         qwen2, kernels, n_req=24, max_new=32, profile_admits=True)
     by_path["qwen2-7b admission A/B"] = admission_ab(

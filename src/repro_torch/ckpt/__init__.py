@@ -1,0 +1,2 @@
+from .checkpoint import CheckpointManager
+__all__ = ["CheckpointManager"]

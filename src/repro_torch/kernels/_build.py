@@ -176,6 +176,20 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def refuse_autograd(name: str, *tensors) -> None:
+    """Raise when grad mode is on and an input needs a gradient. A kernel
+    called through ctypes fills an output from ``torch.empty``, which has no
+    ``grad_fn``: without this the gradient would silently stop there. (An
+    ``autograd.Function`` calls its kernel in its forward, where grad mode
+    is off.)"""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward; call it under "
+            "torch.no_grad() or on inputs that need no gradient")
+
+
 def stream_ptr(t) -> ctypes.c_void_p:
     """The current CUDA stream of ``t``'s device, as a ctypes pointer."""
     import torch

@@ -5,7 +5,14 @@
 // causal with q_offset, sliding window `kpos > qpos - window`, tanh
 // softcap, ragged kv `kpos < T`, p multiplied by the mask explicitly so a
 // fully masked tile adds exactly zero, p rounded to v's dtype before the PV
-// product, out = acc / (l + 1e-30).
+// product, out = acc / (l + 1e-30). Training also asks for the row's
+// log-sum-exp, the residual of the reference's custom VJP
+// (src/repro/kernels/flash_attention/ops.py:148-156): lse = m + log(max(l,
+// 1e-30)) in natural log, fp32 [B, S, H] (the reference's [B, S, KV, G]),
+// written where the output is when the caller passes a pointer (serving
+// passes none). m stays in natural units in both routes (the bf16 route
+// folds log2(e) into its exp2 only), so no base change is needed; a row
+// that sees no key keeps m = -1e30 and l = 0, and its lse is -1e30.
 //
 // Bound on the H100: operations for long prompts, bytes for short ones.
 // A causal prefill does ~2*S*D FLOP per K/V element and reads q and writes
@@ -95,8 +102,9 @@ constexpr int smem_floats() {
 template <int D>
 __global__ void __launch_bounds__(NT)
 attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ o, int S, int T_len, int H, int KV,
-                float scale, int causal, int window, float softcap, int q_offset) {
+                const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse, int S,
+                int T_len, int H, int KV, float scale, int causal, int window, float softcap,
+                int q_offset) {
   extern __shared__ float smem[];
   constexpr int LDQ = D + 1, LDK = D + 1, LDV = D, LDP = BK + 1;
   constexpr int NS = BK / 4, NA = D / 4;
@@ -190,13 +198,15 @@ attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* orow = o + ((long long)b * S + q0 + r) * q_row + (long long)h * D;
 #pragma unroll
     for (int i = 0; i < NA; ++i) orow[j4 + 4 * i] = acc[i] / (l + 1e-30f);
+    if (lse != nullptr && j4 == 0)
+      lse[((long long)b * S + q0 + r) * H + h] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
 template <int D>
-int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
-                int H, int KV, int causal, int window, float softcap, float scale, int q_offset,
-                cudaStream_t stream) {
+int launch_fp32(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                int T_len, int H, int KV, int causal, int window, float softcap, float scale,
+                int q_offset, cudaStream_t stream) {
   const int bytes = smem_floats<D>() * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(attn_fwd_kernel<D>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -204,7 +214,7 @@ int launch_fp32(const void* q, const void* k, const void* v, void* o, int B, int
   const dim3 grid((S + BQ - 1) / BQ, H, B);
   attn_fwd_kernel<D><<<grid, NT, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), S, T_len, H, KV, scale, causal, window, softcap, q_offset);
+      static_cast<float*>(o), lse, S, T_len, H, KV, scale, causal, window, softcap, q_offset);
   return (int)cudaGetLastError();
 }
 
@@ -239,8 +249,8 @@ template <int D>
 __global__ void __launch_bounds__(Cfg<D>::NWG * 128, 1)
 attn_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
-               int S, int T_len, int H, int KV, float scale, int causal, int window,
-               float softcap, int q_offset) {
+               float* __restrict__ lse, int S, int T_len, int H, int KV, float scale, int causal,
+               int window, float softcap, int q_offset) {
   using C = Cfg<D>;
   constexpr int BK = C::BK, ST = C::ST, SW = C::SW, EB = C::EB;
   extern __shared__ uint8_t smem_raw[];
@@ -445,6 +455,11 @@ attn_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__
   // the last S wgmma, has completed), swizzled as the map expects, then
   // one TMA store per box; rows past S are not written
   if (qw0 >= S) return;
+  if (lse != nullptr && (lane & 3) == 0) {   // m and l agree across the row's 4 lanes
+    const long long row = (long long)b * S + qw0 + r0;
+    if (qw0 + r0 < S) lse[row * H + h] = m0 + logf(fmaxf(l0, 1e-30f));
+    if (qw0 + r0 + 8 < S) lse[(row + 8) * H + h] = m1 + logf(fmaxf(l1, 1e-30f));
+  }
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
     const int col = 8 * i + cq;
@@ -480,13 +495,25 @@ int encode(CUtensorMap* map, const void* ptr, int B, int L, int heads, int rows)
   return encode_bf16(map, ptr, 4, dims, strides, box, C::SW);
 }
 
+__global__ void fill_kernel(float* __restrict__ x, long long n, float value) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    x[i] = value;
+}
+
 template <int D>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int S, int T_len,
-                int H, int KV, int causal, int window, float softcap, float scale, int q_offset,
-                cudaStream_t stream) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int B, int S,
+                int T_len, int H, int KV, int causal, int window, float softcap, float scale,
+                int q_offset, cudaStream_t stream) {
   using C = Cfg<D>;
-  if (T_len == 0)   // nothing to attend to: acc / (0 + 1e-30) = 0
-    return (int)cudaMemsetAsync(o, 0, (size_t)B * S * H * D * 2, stream);
+  if (T_len == 0) {   // nothing to attend to: acc / (0 + 1e-30) = 0, lse = m = -1e30
+    cudaError_t e = cudaMemsetAsync(o, 0, (size_t)B * S * H * D * 2, stream);
+    if (e != cudaSuccess || lse == nullptr) return (int)e;
+    const long long n = (long long)B * S * H;
+    fill_kernel<<<(int)((n + 255) / 256 < 1024 ? (n + 255) / 256 : 1024), 256, 0, stream>>>(
+        lse, n, NEG_INF);
+    return (int)cudaGetLastError();
+  }
   CUtensorMap tq, tk, tv, to;
   int rc = encode<D>(&tq, q, B, S, H, 64);
   if (rc == 0) rc = encode<D>(&tk, k, B, T_len, KV, C::BK);
@@ -498,21 +525,23 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B, int
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(H, B, (S + C::BQ - 1) / C::BQ);
   attn_fwd_wgmma<D><<<grid, C::NWG * 128, C::SMEM, stream>>>(
-      tq, tk, tv, to, S, T_len, H, KV, scale, causal, window, softcap, q_offset);
+      tq, tk, tv, to, lse, S, T_len, H, KV, scale, causal, window, softcap, q_offset);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32 (CUDA cores), 1 = bfloat16 (wgmma + TMA); q, k, v and
-// o all of it. Returns 0, a cudaError_t, or ENCODE_ERROR + a CUresult; the
-// Python wrapper raises on non-zero.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                                   int S, int T_len, int H, int KV, int D, int dtype, int causal,
-                                   int window, float softcap, float scale, int q_offset,
-                                   void* stream) {
+// o all of it. lse: fp32 [B, S, H], or nullptr for none. Returns 0, a
+// cudaError_t, or ENCODE_ERROR + a CUresult; the Python wrapper raises on
+// non-zero.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                                   void* lse, int B, int S, int T_len, int H, int KV, int D,
+                                   int dtype, int causal, int window, float softcap, float scale,
+                                   int q_offset, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FA_ARGS q, k, v, o, B, S, T_len, H, KV, causal, window, softcap, scale, q_offset, st
+  float* ls = static_cast<float*>(lse);
+#define FA_ARGS q, k, v, o, ls, B, S, T_len, H, KV, causal, window, softcap, scale, q_offset, st
   if (dtype == 0) switch (D) {
       case 16: return launch_fp32<16>(FA_ARGS);
       case 32: return launch_fp32<32>(FA_ARGS);

@@ -7,7 +7,11 @@ CUDA cores, in full fp32.
 The wrapper checks device, dtype, shape and contiguity, allocates the
 output with ``torch.empty``, launches on the current stream and counts its
 launches in ``KERNEL.launches``. It takes CUDA tensors only: the plain
-version for the CPU is ``ops._mha_torch``.
+version for the CPU is ``ops._mha_torch``. With ``return_lse`` it also
+returns each row's fp32 log-sum-exp, the residual training saves
+(``ops.MhaFunction``). The kernel has no backward, so the wrapper refuses
+inputs that need a gradient: its output, filled through ctypes, would have
+no ``grad_fn`` and the gradient would silently stop there.
 """
 from __future__ import annotations
 
@@ -17,14 +21,14 @@ from typing import Optional
 
 import torch
 
-from .._build import CudaKernel, stream_ptr
+from .._build import CudaKernel, refuse_autograd, stream_ptr
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 KERNEL = CudaKernel(
     "flash_attention", Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
     "flash_attention_fwd",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P])
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P])
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -57,19 +61,24 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softcap: float = 0.0, scale: Optional[float] = None,
-                    q_offset: int = 0) -> torch.Tensor:
-    """q: [B, S, H, D]; k, v: [B, T, KV, D] -> [B, S, H, D] in q.dtype."""
+                    q_offset: int = 0, return_lse: bool = False):
+    """q: [B, S, H, D]; k, v: [B, T, KV, D] -> out [B, S, H, D] in
+    q.dtype, and with ``return_lse`` also lse [B, S, H] fp32
+    (``m + log(max(l, 1e-30))``, natural log)."""
+    refuse_autograd("flash_attention", q, k, v)
     _check(q, k, v)
     B, S, H, D = q.shape
     T, KV = k.shape[1], k.shape[2]
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    fn = KERNEL.fn()
-    KERNEL.count_launch()
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, T, H, KV, D, DTYPES[q.dtype], int(causal), int(window),
-            float(softcap), float(scale), int(q_offset), stream_ptr(q))
-    KERNEL.check(rc)
-    return out
+    lse = (torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    if out.numel() > 0:
+        fn = KERNEL.fn()
+        KERNEL.count_launch()
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(),
+                B, S, T, H, KV, D, DTYPES[q.dtype], int(causal), int(window),
+                float(softcap), float(scale), int(q_offset), stream_ptr(q))
+        KERNEL.check(rc)
+    return (out, lse) if return_lse else out

@@ -12,6 +12,8 @@ counts its launches in ``KERNEL.launches``. It takes CUDA tensors only: the
 plain version for the CPU is ``flash_attention.ops._decode_partials``.
 ``lengths`` stays on the device; the kernel reads each row's length itself,
 so no host sync happens here.
+The kernel has no backward: the wrapper raises when grad mode is on and
+an input needs a gradient (``_build.refuse_autograd``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from .._build import CudaKernel, sm_count, stream_ptr
+from .._build import CudaKernel, refuse_autograd, sm_count, stream_ptr
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -86,6 +88,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  window: int = 0, softcap: float = 0.0,
                  scale: Optional[float] = None) -> torch.Tensor:
     """q: [B,1,H,D]; caches [B,L,KV,D]; lengths [B] int32 -> [B,1,H,D]."""
+    refuse_autograd("flash_decode", q, k_cache, v_cache)
     _check(q, k_cache, v_cache, lengths)
     B, _, H, D = q.shape
     L, KV = k_cache.shape[1], k_cache.shape[2]

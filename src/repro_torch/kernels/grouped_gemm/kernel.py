@@ -13,6 +13,8 @@ the current stream and counts its launches in ``KERNEL.launches``. The
 group sizes stay on the device: the kernel scans them itself, so a call
 never waits on the host. It takes CUDA tensors only: the plain version for
 the CPU is ``ops._grouped_gemm_torch``.
+The kernel has no backward: the wrapper raises when grad mode is on and
+an input needs a gradient (``_build.refuse_autograd``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-from .._build import CudaKernel, stream_ptr
+from .._build import CudaKernel, refuse_autograd, stream_ptr
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -62,6 +64,7 @@ def grouped_gemm(x: torch.Tensor, group_sizes: torch.Tensor,
                  W: torch.Tensor) -> torch.Tensor:
     """x: [T, D] sorted by group; group_sizes: [E] int32/int64 on x's
     device; W: [E, D, F] -> [T, F] in x's dtype, zero past the last group."""
+    refuse_autograd("grouped_gemm", x, W)
     _check(x, group_sizes, W)
     T, D = x.shape
     E, _, F = W.shape

@@ -12,6 +12,8 @@ allocates ``y`` and the final state with ``torch.empty``, launches one
 kernel on the current stream and counts its launches in
 ``KERNEL.launches``. It takes CUDA tensors only: the
 plain version for the CPU is ``ops._mamba_torch``.
+The kernel has no backward: the wrapper raises when grad mode is on and
+an input needs a gradient (``_build.refuse_autograd``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .._build import CudaKernel, sm_count, stream_ptr
+from .._build import CudaKernel, refuse_autograd, sm_count, stream_ptr
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -102,6 +104,7 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x, dt: [Bt,S,DI]; A: [DI,N]; B, C: [Bt,S,N]; D: [DI]; state:
     [Bt,DI,N] or None; all fp32. Returns (y [Bt,S,DI], state [Bt,DI,N])."""
+    refuse_autograd("mamba_scan", x, dt, A, B, C, D, state)
     _check(x, dt, A, B, C, D, state)
     Bt, S, DI = x.shape
     N = A.shape[1]

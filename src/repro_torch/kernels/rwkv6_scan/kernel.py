@@ -12,6 +12,8 @@ allocates the output and the final state with ``torch.empty``, launches
 one kernel on the current stream and counts its launches in
 ``KERNEL.launches``. It takes CUDA tensors only: the plain version for
 the CPU is ``ops._rwkv6_torch``.
+The kernel has no backward: the wrapper raises when grad mode is on and
+an input needs a gradient (``_build.refuse_autograd``).
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .._build import CudaKernel, sm_count, stream_ptr
+from .._build import CudaKernel, refuse_autograd, sm_count, stream_ptr
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -112,6 +114,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r,k,v: [B,S,H,D] fp32|bf16; w: [B,S,H,D] fp32; u: [H,D] fp32;
     state: [B,H,D,D] fp32 or None. Returns (out in r's dtype, state)."""
+    refuse_autograd("rwkv6_scan", r, k, v, w, u, state)
     _check(r, k, v, w, u, state)
     B, S, H, D = r.shape
     out = torch.empty_like(r)

@@ -14,6 +14,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 @dataclass(frozen=True)
@@ -151,3 +152,56 @@ def embed(tokens: torch.Tensor, p: Dict[str, Any], *,
 def _rounded(value: float, dtype: Optional[torch.dtype]) -> float:
     """``value`` rounded to ``dtype`` (as ``jnp.asarray(value, dtype)``)."""
     return float(torch.tensor(value, dtype=dtype))
+
+
+# ----------------------------------------------------------------- chunked loss
+
+def _xent_chunk(hc: torch.Tensor, wv: torch.Tensor, lc: torch.Tensor,
+                mc: torch.Tensor, final_softcap: float, valid_vocab: int,
+                compute_dtype) -> torch.Tensor:
+    """Masked cross-entropy sum of one chunk: logits [B, c, V] in fp32,
+    softcapped, padded vocab rows at -1e30, then lse minus the label's."""
+    V = wv.shape[-1]
+    logits = (hc.to(compute_dtype) @ wv).float()
+    if final_softcap > 0.0:
+        logits = torch.tanh(logits / final_softcap) * final_softcap
+    if 0 < valid_vocab < V:     # padded vocab rows stay out of the lse
+        pad = torch.arange(V, device=logits.device) >= valid_vocab
+        logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    lab = logits.gather(-1, lc.long()[..., None])[..., 0]
+    return ((lse - lab) * mc).sum()
+
+
+def chunked_softmax_xent(h: torch.Tensor, vocab_w: torch.Tensor,
+                         labels: torch.Tensor, *,
+                         mask: Optional[torch.Tensor], chunk: int = 512,
+                         final_softcap: float = 0.0, valid_vocab: int = 0,
+                         compute_dtype=torch.bfloat16
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-entropy without holding [B, S, V] logits (twin of
+    ``repro.models.layers.chunked_softmax_xent``).
+
+    Walks sequence chunks of ``chunk`` positions; per chunk computes the
+    fp32 logits [B, c, V], the log-sum-exp and the label's logit. Each
+    chunk's body is recomputed in the backward pass
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), so at
+    most one chunk's logits are alive. A ragged last chunk is sliced where
+    the reference pads it with mask 0, which adds exactly zero.
+    h: [B, S, D]; vocab_w: [D, V]; labels: [B, S]; mask: [B, S] or None.
+    Returns (total loss sum, total weight), fp32 scalars."""
+    B, S, _ = h.shape
+    c = min(chunk, S)
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=h.device)
+    mask = mask.float()
+    wv = vocab_w.to(compute_dtype)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    w_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s0 in range(0, S, c):
+        sl = slice(s0, s0 + c)
+        loss_sum = loss_sum + checkpoint(
+            _xent_chunk, h[:, sl], wv, labels[:, sl], mask[:, sl],
+            final_softcap, valid_vocab, compute_dtype, use_reentrant=False)
+        w_sum = w_sum + mask[:, sl].sum()
+    return loss_sum, w_sum

@@ -13,18 +13,24 @@ A parameter is stored in the compute dtype only where the reference casts
 it to the compute dtype at every use (``Param.compute``), and in fp32
 elsewhere, so the numerics are the reference's. The decode cache, the
 recurrent states included, is updated in place.
+
+Training: ``forward(remat=True)`` recomputes each block in the backward
+pass (``torch.utils.checkpoint``, the reference's ``nothing_saveable`` scan
+body), and ``loss_fn`` is the reference's next-token loss through
+``layers.chunked_softmax_xent``.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from .attention import attn_apply
 from .config import ModelConfig
-from .layers import (Param, dense_spec, embed, glu, glu_spec, rms_norm,
-                     truncated_normal_)
+from .layers import (Param, chunked_softmax_xent, dense_spec, embed, glu,
+                     glu_spec, rms_norm, truncated_normal_)
 from .mamba import init_mamba_block, mamba_apply
 from .moe import init_moe, moe_apply
 from .rwkv6 import channel_mix, init_rwkv_block, time_mix
@@ -196,13 +202,25 @@ def _block(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _unbind(tree: Any, n: int) -> list:
+    """The ``n`` blocks of a tree stacked on the leading axis, as views.
+    One ``unbind`` per leaf: its backward stacks the blocks' gradients
+    once, where indexing block by block would give each block's gradient
+    a zero-filled tensor of the whole stack."""
+    if isinstance(tree, dict):
+        parts = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, cache=None,
-            lengths: Optional[torch.Tensor] = None,
+            lengths: Optional[torch.Tensor] = None, remat: bool = False,
             impl: Optional[str] = None,
             compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Any]:
     """Run the decoder stack. Returns (hidden [B,S,D], the cache|None);
-    the cache's tensors are updated in place."""
+    the cache's tensors are updated in place. With ``remat`` each block
+    keeps only its input for the backward pass and runs again there."""
     check_supported(cfg)
     x = embed(tokens, params["embed"], scale_by_dim=cfg.embed_scale,
               compute_dtype=compute_dtype)
@@ -210,56 +228,72 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
     if positions is None:
         positions = (torch.arange(S, device=x.device)
                      if lengths is None or S > 1 else (lengths - 1)[:, None])
+    kw = dict(cfg=cfg, positions=positions, lengths=lengths, impl=impl,
+              compute_dtype=compute_dtype)
+    blocks = _unbind(params["blocks"], cfg.n_blocks)
+    for blk in range(cfg.n_blocks):
+        c = None if cache is None else _block(cache, blk)
+        if remat:
+            x = checkpoint(_block_body, x, blocks[blk], c, use_reentrant=False,
+                           **kw)
+        else:
+            x = _block_body(x, blocks[blk], c, **kw)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps,
+                 cfg.zero_centered_norm)
+    return x, cache
+
+
+def _block_body(x: torch.Tensor, p_block, c_block, *, cfg: ModelConfig,
+                positions, lengths, impl, compute_dtype) -> torch.Tensor:
+    """One block: every sub-layer of ``cfg.layer_pattern`` in turn."""
     zc, eps = cfg.zero_centered_norm, cfg.norm_eps
     kw = dict(impl=impl, compute_dtype=compute_dtype)
-    for blk in range(cfg.n_blocks):
-        for i, kind in enumerate(cfg.layer_pattern):
-            sub = _block(params["blocks"][f"sub{i}"], blk)
-            c = None if cache is None else _block(cache[f"sub{i}"], blk)
-            h = rms_norm(x, sub["ln1"], eps, zc)
-            if kind in ("g", "l"):
-                out, _ = attn_apply(sub["attn"], h, cfg=cfg, kind=kind,
-                                    positions=positions, cache=c,
-                                    lengths=lengths, **kw)
-                if cfg.post_norms:
-                    out = rms_norm(out, sub["post_ln1"], eps, zc)
-                x = x + out
-            elif kind == "m":
-                out, conv, ssm = mamba_apply(
-                    sub["mamba"], h, cfg,
-                    conv_state=None if c is None else c["conv"],
-                    ssm_state=None if c is None else c["ssm"], **kw)
-                x = x + out
-                if c is not None:
-                    c["conv"].copy_(conv)
-                    c["ssm"].copy_(ssm)
-            else:
-                out, shift_tm, wkv = time_mix(
-                    sub["rwkv"], h, cfg,
-                    shift_state=None if c is None else c["shift_tm"],
-                    wkv_state=None if c is None else c["wkv"], **kw)
-                x = x + out
-                h = rms_norm(x, sub["ln2"], eps, zc)
-                out, shift_cm = channel_mix(
-                    sub["rwkv"], h, cfg,
-                    shift_state=None if c is None else c["shift_cm"],
-                    compute_dtype=compute_dtype)
-                x = x + out
-                if c is not None:
-                    c["shift_tm"].copy_(shift_tm)
-                    c["shift_cm"].copy_(shift_cm)
-                    c["wkv"].copy_(wkv)
-                continue
-            h = rms_norm(x, sub["ln2"], eps, zc)
-            if _moe_static(cfg, i):
-                out = moe_apply(sub["ffn"], h, cfg, compute_dtype)
-            else:
-                out = glu(h, sub["ffn"], cfg.act, compute_dtype)
-            if cfg.post_norms and kind in ("g", "l"):
-                out = rms_norm(out, sub["post_ln2"], eps, zc)
+    for i, kind in enumerate(cfg.layer_pattern):
+        sub = p_block[f"sub{i}"]
+        c = None if c_block is None else c_block[f"sub{i}"]
+        h = rms_norm(x, sub["ln1"], eps, zc)
+        if kind in ("g", "l"):
+            out, _ = attn_apply(sub["attn"], h, cfg=cfg, kind=kind,
+                                positions=positions, cache=c,
+                                lengths=lengths, **kw)
+            if cfg.post_norms:
+                out = rms_norm(out, sub["post_ln1"], eps, zc)
             x = x + out
-    x = rms_norm(x, params["final_norm"], eps, zc)
-    return x, cache
+        elif kind == "m":
+            out, conv, ssm = mamba_apply(
+                sub["mamba"], h, cfg,
+                conv_state=None if c is None else c["conv"],
+                ssm_state=None if c is None else c["ssm"], **kw)
+            x = x + out
+            if c is not None:
+                c["conv"].copy_(conv)
+                c["ssm"].copy_(ssm)
+        else:
+            out, shift_tm, wkv = time_mix(
+                sub["rwkv"], h, cfg,
+                shift_state=None if c is None else c["shift_tm"],
+                wkv_state=None if c is None else c["wkv"], **kw)
+            x = x + out
+            h = rms_norm(x, sub["ln2"], eps, zc)
+            out, shift_cm = channel_mix(
+                sub["rwkv"], h, cfg,
+                shift_state=None if c is None else c["shift_cm"],
+                compute_dtype=compute_dtype)
+            x = x + out
+            if c is not None:
+                c["shift_tm"].copy_(shift_tm)
+                c["shift_cm"].copy_(shift_cm)
+                c["wkv"].copy_(wkv)
+            continue
+        h = rms_norm(x, sub["ln2"], eps, zc)
+        if _moe_static(cfg, i):
+            out = moe_apply(sub["ffn"], h, cfg, compute_dtype)
+        else:
+            out = glu(h, sub["ffn"], cfg.act, compute_dtype)
+        if cfg.post_norms and kind in ("g", "l"):
+            out = rms_norm(out, sub["post_ln2"], eps, zc)
+        x = x + out
+    return x
 
 
 def logits_head(params, cfg: ModelConfig, h: torch.Tensor,
@@ -273,6 +307,34 @@ def logits_head(params, cfg: ModelConfig, h: torch.Tensor,
     if cfg.padded_vocab != cfg.vocab:   # mask padding rows out of the softmax
         logits[..., cfg.vocab:] = -1e30
     return logits
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
+            remat: bool = True, impl: Optional[str] = None,
+            compute_dtype=torch.bfloat16
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy, chunked ([B, S, V] never held). ``batch``:
+    "tokens" [B, S] and an optional "mask" [B, S], tensors on the
+    parameters' device. The labels are the tokens shifted left by one with
+    a 0 at the end, whose position the mask drops. Returns (loss,
+    {"loss_sum", "weight"})."""
+    tokens = batch["tokens"]
+    h, _ = forward(params, cfg, tokens=tokens, remat=remat, impl=impl,
+                   compute_dtype=compute_dtype)
+    labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(tokens.shape, dtype=torch.float32,
+                          device=tokens.device)
+    mask = mask.float().clone()
+    mask[:, -1] = 0.0
+    w = (params["embed"]["table"].T if cfg.tie_embeddings
+         else params["lm_head"]["w"])
+    loss_sum, w_sum = chunked_softmax_xent(
+        h, w, labels, mask=mask, final_softcap=cfg.final_softcap,
+        valid_vocab=cfg.vocab, compute_dtype=compute_dtype)
+    loss = loss_sum / torch.clamp(w_sum, min=1.0)
+    return loss, {"loss_sum": loss_sum, "weight": w_sum}
 
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache, *,

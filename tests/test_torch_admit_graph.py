@@ -277,9 +277,12 @@ def test_capture_section_admits_one_thread_at_a_time(monkeypatch):
     ``engine._capture_graph`` (stand-in graph, streams and body: the
     section's code is the engine's), while two more threads hold
     ``CAPTURE_LOCK`` for a stand-in device-wide sync. No two of those
-    sections overlap in time, from a capture's warm-up to its end."""
+    sections overlap in time, from a capture's warm-up to its end (each
+    span's end is read inside the section: read after ``_capture_graph``
+    returns, it could come after the next holder's start)."""
     spans, errors = [], []
     spans_lock = threading.Lock()
+    ends = threading.local()
 
     class StandInGraph:
         def capture_begin(self, pool=None, capture_error_mode="global"):
@@ -287,6 +290,7 @@ def test_capture_section_admits_one_thread_at_a_time(monkeypatch):
 
         def capture_end(self):
             time.sleep(0.0005)
+            ends.t = time.perf_counter()
 
     monkeypatch.setattr(torch.cuda, "CUDAGraph", StandInGraph)
     monkeypatch.setattr(torch.cuda, "stream",
@@ -294,10 +298,10 @@ def test_capture_section_admits_one_thread_at_a_time(monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: _NullStream())
 
-    def note(start):
+    def note(start, end=None):
+        end = time.perf_counter() if end is None else end
         with spans_lock:
-            spans.append((start, time.perf_counter(),
-                          threading.current_thread().name))
+            spans.append((start, end, threading.current_thread().name))
 
     def capturer():
         try:
@@ -310,7 +314,7 @@ def test_capture_section_admits_one_thread_at_a_time(monkeypatch):
 
                 graph, launches = engine_mod._capture_graph(
                     lambda: time.sleep(0.0005), _NullStream(), warmup=warm)
-                note(t["start"])
+                note(t["start"], ends.t)
                 assert isinstance(graph, StandInGraph) and launches == {}
         except Exception as e:          # reported by the main thread
             errors.append(e)

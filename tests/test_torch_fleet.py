@@ -574,13 +574,30 @@ def test_fleet_on_the_card(cuda):
         assert wait_for(lambda: [u.status.phase for u in fw.super_api.list(
             "WorkUnit", SERVING_NS)] == ["Ready", "Ready"], timeout=120)
         # keep both busy (40 requests of 32 tokens on 8 slots), then grow:
-        # engine-2 is built meanwhile
+        # engine-2 is built meanwhile. A first round of the same load lets
+        # each replica capture the admission shapes it meets (a replica
+        # capturing a shape waits for engine-2's capture under CAPTURE_LOCK,
+        # and cannot step meanwhile); then, since the two may drain 40
+        # requests before the resize reaches a node agent, requests keep
+        # coming until engine-2 is built (at most 2,000)
         rng = np.random.default_rng(6)
-        more = [fleet.submit("tenant-a", rng.integers(0, cfg.vocab, 8),
-                             max_new_tokens=32) for _ in range(40)]
+
+        def submit():
+            more.append(fleet.submit("tenant-a", rng.integers(0, cfg.vocab, 8),
+                                     max_new_tokens=32))
+        more = []
+        for _ in range(40):
+            submit()
+        fleet.wait_completed(len(uids) + len(more), timeout=300)
+        for _ in range(40):
+            submit()
         assert wait_for(lambda: sum(b[0].active_slots() for b in builds) > 0,
                         timeout=60)
+        t_resize = time.monotonic()
         fleet.resize(3)
+        while len(builds) < 3 and len(more) < 2000:
+            submit()
+            time.sleep(0.002)
         done = fleet.wait_completed(len(uids) + len(more), timeout=300)
         assert wait_for(lambda: fleet.live_replicas() == 3, timeout=120)
         with CAPTURE_LOCK:
@@ -590,8 +607,13 @@ def test_fleet_on_the_card(cuda):
     assert len(builds) == 3
     assert all(name.startswith("vc-exec") for _, name, _, _ in builds), builds
     third, _, t0, t1 = builds[2]
-    assert any(e is not third and t0 <= t <= t1 for e, t in steps), \
-        "no replica stepped while engine-2 was built"
+    others = [t for e, t in steps if e is not third]
+    assert any(t0 <= t <= t1 for t in others), (
+        "no replica stepped while engine-2 was built: resize at "
+        f"{t_resize:.4f}, build [{t0:.4f}, {t1:.4f}], other replicas' last "
+        f"step before it {max((t for t in others if t < t0), default=None)}, "
+        f"first after it {min((t for t in others if t > t1), default=None)}, "
+        f"{len(more)} requests")
     want_launches = {"flash_attention": 0, "flash_decode": 0,
                      "rwkv6_scan": 0, "mamba_scan": 0, "grouped_gemm": 0}
     for engine, _, _, _ in builds:

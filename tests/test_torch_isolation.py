@@ -14,11 +14,15 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import init_params
+from repro_torch.launch.train import main as train_main
 from repro_torch.serving import GenerationEngine, generate
+from repro_torch.training import (OptimizerConfig, make_opt_state,
+                                  make_train_step)
 
 REPO = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+PORT_FILES = (sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+              + sorted((REPO / "examples").glob("*_torch.py"))
+              + [REPO / "chip_smoke.py"])
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
@@ -50,6 +54,11 @@ def test_port_files_exist():
                 / f"{kernel}.cu").is_file()
     for module in ("rwkv6", "mamba", "moe"):
         assert f"src/repro_torch/models/{module}.py" in names
+    for module in ("training/optimizer", "training/step", "data/pipeline",
+                   "ckpt/checkpoint", "launch/train"):
+        assert f"src/repro_torch/{module}.py" in names
+    assert "examples/serve_multitenant_torch.py" in names
+    assert "examples/train_tenant_job_torch.py" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -69,6 +78,8 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.models.rwkv6, repro_torch.models.mamba\n"
             "import repro_torch.models.moe\n"
             "import repro_torch.core, repro_torch.serving.host\n"
+            "import repro_torch.training, repro_torch.data, repro_torch.ckpt\n"
+            "import repro_torch.launch.train\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -96,9 +107,20 @@ def test_entry_points_default_to_the_card(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         generate(cfg, params, np.zeros((1, 4), np.int32), max_new_tokens=2,
                  max_len=16)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train_main(["--reduced", "--steps", "1"])
     # asking for the CPU works
     eng = GenerationEngine(cfg, params, device="cpu", max_len=16)
     assert eng.cache["sub0"]["k"].device.type == "cpu"
+    assert train_main(["--reduced", "--steps", "1", "--batch", "2",
+                       "--seq", "8", "--device", "cpu"]) == 0
+    # the train step runs where the parameters are: CPU parameters train
+    # on the CPU, and nothing moves to the card
+    step = make_train_step(cfg, OptimizerConfig())
+    _, opt, metrics = step(params, make_opt_state(params),
+                           {"tokens": np.zeros((2, 8), np.int32)})
+    assert opt["step"].device.type == "cpu"
+    assert all(m.device.type == "cpu" for m in metrics.values())
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
