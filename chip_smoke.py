@@ -38,15 +38,28 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    dq/dk/dv through the kernel against the same backward on the plain
    forward, and against "ref" autograd at B 1, S 300; the forward's time
    with and without the lse, the PyTorch backward's, and SDPA's forward
-   plus backward beside them (``train_kernel {...}``). Then qwen2-7b at
-   full width cut to 8 of its 28 layers with fp32 masters (2.98 B
-   parameters; 28 layers would need ~123 GB): loss and gradient norm
-   through the kernel against the plain path before any update, then 6
-   steps of 16,384 tokens (batch 4 as 2 microbatches of 2, seq 4096) on
-   one repeated batch, the loss falling, 32 prefill-attention launches a
-   step (8 layers x 2 microbatches x forward and remat recompute), step
-   ms, tokens/s, share of the bf16 peak, peak memory (``train_step
-   {...}``) and one profiled step (``train_profile {...}``). Then
+   plus backward beside them (``train_kernel {...}``). The scans'
+   training form at their training shapes (rwkv6 B 2, S 4096, H 64, D 64
+   bf16; mamba Bt 2, S 4096, DI 8192, N 16 fp32): ``Rwkv6ScanFunction``
+   and ``MambaScanFunction`` through the kernel (one launch a group of 16
+   chunks) against autograd through the plain versions, output and every
+   gradient; the forward as grouped launches and as one launch, the
+   PyTorch backward, forward plus backward and the plain version's, beside
+   the backward's bound (``train_scan {...}``). Then training at full
+   width with fp32 masters (16 bytes a parameter), 16,384 tokens a step
+   (batch 4 as 2 microbatches of 2, seq 4096) on one repeated batch:
+   qwen2-7b cut to 8 of its 28 layers (2.98 B parameters; 28 layers would
+   need ~123 GB), 6 steps; rwkv6-7b cut to 8 of its 32 layers (2.30 B; 32
+   would need ~121 GB), 3 steps; jamba-v0.1-52b cut to the pattern "mm"
+   (2 Mamba layers, one with the dense feed-forward and one with all 16
+   experts: 3.74 B; one period of 8 would need ~213 GB), 3 steps as 4
+   microbatches of 1 (at 2 it ran out of memory). Each:
+   loss and gradient norm through the kernels against the plain path
+   before any update, the loss falling, each kernel's launches a step
+   (attention and the scans: layers x 2 microbatches x forward and remat
+   recompute, the scans x 16 groups), step ms, tokens/s, share of the
+   bf16 peak, peak memory (``train_step {...}``) and one profiled step
+   with the PyTorch backwards' shares (``train_profile {...}``). Then
    ``examples/train_tenant_job_torch.py``'s ``100m`` preset through a live
    ``VirtualClusterFramework``: 3 units of 5 steps, each saving a
    checkpoint, every unit ``Ready``, the last checkpoint restored bit for
@@ -1957,17 +1970,19 @@ LSE_TOL = 1e-4   # fp32 statistics on both sides: summation order, SFU exp2
 GRAD_TOL = 2e-2  # of the gradient's largest magnitude: see check_grad
 
 
-def check_grad(name, got, want):
-    """Max abs error of a bf16 gradient within ``GRAD_TOL`` of the largest
-    |want|. The flash backward rounds p and ds to bf16 before its products
-    (as the reference does), so a forward that differs by an output ulp,
-    or the fp32 "ref" autograd, moves a gradient by an ulp or two of its
-    largest values (0.5% of the scale on the CPU at B 1, S 300)."""
+def check_grad(name, got, want, tol=GRAD_TOL):
+    """Max abs error of a gradient within ``tol`` of the largest |want|
+    (returned). For bf16 gradients ``GRAD_TOL``: the flash backward rounds
+    p and ds to bf16 before its products (as the reference does), so a
+    forward that differs by an output ulp, or the fp32 "ref" autograd,
+    moves a gradient by an ulp or two of its largest values (0.5% of the
+    scale on the CPU at B 1, S 300)."""
     assert torch.isfinite(got.float()).all()
     scale = float(want.float().abs().max())
     err = max_err(got, want)
     print(f"check {name}: max_abs_err={err!r} of max |grad| {scale!r}")
-    check(f"{name} (relative to max |grad|)", err / scale, GRAD_TOL)
+    check(f"{name} (relative to max |grad|)", err / scale, tol)
+    return err / scale
 
 
 def attn_train_bound(B, S, H, D, window):
@@ -2081,37 +2096,186 @@ def train_kernel_phase(gen):
     return rows[0]
 
 
-def train_phase(cfg, kernels, n_layers=8, steps=6, microbatches=2, batch=4,
+SCAN_TRAIN = {
+    # scan: (shape, what the train step hands over)
+    "rwkv6_scan": ((2, 4096, 64, 64), "rwkv6-7b heads, bf16 r/k/v and u "
+                   "(the train step's copies), fp32 w, no initial state"),
+    "mamba_scan": ((2, 4096, 8192, 16), "jamba d_inner and d_state, fp32, "
+                   "A = -(1..16), dt from a softplus, no initial state"),
+}
+SCAN_GRAD_TOL = {"rwkv6_scan": GRAD_TOL, "mamba_scan": 1e-3}
+
+
+def scan_train_case(gen, name):
+    """(inputs, the Function's call on them with an impl, the plain
+    version, the one-launch kernel call, the cotangent of the output) of
+    ``name`` at its training shape (``SCAN_TRAIN``), drawn from ``gen``."""
+    from repro_torch.kernels.mamba_scan.ops import (MambaScanFunction,
+                                                    _mamba_torch)
+    from repro_torch.kernels.rwkv6_scan.ops import (Rwkv6ScanFunction,
+                                                    _rwkv6_torch)
+    shape = SCAN_TRAIN[name][0]
+
+    def randn(*dims, scale=1.0):
+        return torch.randn(dims, generator=gen, device="cuda") * scale
+
+    if name == "rwkv6_scan":
+        B, S, H, D = shape
+        r, k, v = (randn(B, S, H, D, scale=0.5).bfloat16() for _ in range(3))
+        w = torch.exp(-torch.exp(randn(B, S, H, D, scale=0.5)))
+        u = randn(H, D, scale=0.1).bfloat16()
+        dout = randn(B, S, H, D).bfloat16()
+        return ((r, k, v, w, u),
+                lambda impl, *t: Rwkv6ScanFunction.apply(*t, None, impl, 16),
+                lambda *t: _rwkv6_torch(*t, None, chunk=16),
+                lambda: rs_kernel.rwkv6_scan(r, k, v, w, u.float()), dout)
+    Bt, S, DI, N = shape
+    x = randn(Bt, S, DI, scale=0.5)
+    dt = F.softplus(randn(Bt, S, DI))
+    A = -torch.arange(1, N + 1, dtype=torch.float32, device="cuda").expand(
+        DI, N).contiguous()
+    Bm, Cm = randn(Bt, S, N, scale=0.5), randn(Bt, S, N, scale=0.5)
+    D = torch.ones(DI, device="cuda")
+    return ((x, dt, A, Bm, Cm, D),
+            lambda impl, *t: MambaScanFunction.apply(*t, None, impl, 16),
+            lambda *t: _mamba_torch(*t, None, chunk=16),
+            lambda: ms_kernel.mamba_scan(x, dt, A, Bm, Cm, D),
+            randn(Bt, S, DI))
+
+
+def scan_bwd_bound(name, groups):
+    """The scans' backward: the inputs, the output's cotangent and each
+    group's saved entry state read once, the gradients written once; twice
+    the forward's per-step fp32 operations (``rwkv6_bound``'s and the
+    mamba row's rules) at 67 TFLOP/s. Returns (ms, by what, bytes)."""
+    if name == "rwkv6_scan":
+        B, S, H, D = SCAN_TRAIN[name][0]
+        n = B * S * H * D
+        io = n * (3 * 2 + 4) + H * D * 2          # r, k, v bf16, w fp32, u
+        nbytes = 2 * io + 2 * n + groups * B * H * D * D * 4
+        flops = 2 * (5 * n * D + 4 * n)
+    else:
+        Bt, S, DI, N = SCAN_TRAIN[name][0]
+        n = Bt * S * DI
+        io = 4 * (2 * n + DI * N + 2 * Bt * S * N + DI)   # x, dt, A, B, C, D
+        nbytes = 2 * io + 4 * n + groups * Bt * DI * N * 4
+        flops = 2 * 8 * n * N
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    return b_ms, b_by, nbytes
+
+
+def train_scan_phase(gen):
+    """Each scan's training form at its training shape (``SCAN_TRAIN``):
+    ``Rwkv6ScanFunction`` / ``MambaScanFunction`` through the kernel
+    against autograd through the plain version (``_rwkv6_torch`` /
+    ``_mamba_torch``) on the same inputs and output cotangent: the output
+    (rwkv6 one bf16 ulp, 5e-2; mamba 1e-3) and every gradient (of its
+    largest magnitude: ``SCAN_GRAD_TOL``; the backward is the same PyTorch
+    recompute on both, from entry states that the kernel gives to 1e-3).
+    Times: the forward as the Function's grouped launches and as one
+    launch (device time, ``graph_ms``), the backward alone (the Function's
+    backward replayed on a retained graph, CUDA events around back-to-back
+    calls: mostly the host issuing its small kernels), the Function's
+    forward plus backward and the plain version's, beside the backward's
+    bound. Lines ``train_scan {...}``."""
+    from repro_torch.kernels.scan_groups import group_bounds
+    rows = []
+    t0 = time.monotonic()
+    for name, (shape, what) in SCAN_TRAIN.items():
+        kernel = rs_kernel.KERNEL if name == "rwkv6_scan" else ms_kernel.KERNEL
+        ins, fn, plain, one_launch, dout = scan_train_case(gen, name)
+        S = shape[1]
+        groups = len(group_bounds(S, 16))
+        leaves = [t.detach().requires_grad_(True) for t in ins]
+        kernel.launches = 0
+        out, state = fn("cuda", *leaves)
+        assert kernel.launches == groups, (kernel.launches, groups)
+        grads = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+        pleaves = [t.detach().requires_grad_(True) for t in ins]
+        pout, pstate = plain(*pleaves)
+        pgrads = torch.autograd.grad(pout, pleaves, dout)
+        sync()
+        out_tol = 5e-2 if name == "rwkv6_scan" else 1e-3
+        out_err = max_err(out, pout)
+        check(f"{name} Function out through the kernel vs plain", out_err,
+              out_tol)
+        check(f"{name} Function final state vs plain",
+              max_err(state, pstate), 1e-3)
+        names = (("r", "k", "v", "w", "u") if name == "rwkv6_scan"
+                 else ("x", "dt", "A", "B", "C", "D"))
+        grad_errs = {n: check_grad(f"{name} Function d{n} vs plain autograd",
+                                   g, p, SCAN_GRAD_TOL[name])
+                     for n, g, p in zip(names, grads, pgrads)}
+        del pout, pstate, pgrads, pleaves
+        free_card()
+        with torch.no_grad():
+            fwd_ms = graph_ms(lambda: fn("cuda", *ins), iters=5, replays=2)
+            one_ms = graph_ms(one_launch, iters=5, replays=2)
+        bwd_ms = time_ms(lambda: torch.autograd.grad(
+            out, leaves, dout, retain_graph=True), iters=3, warmup=1)
+        del out, state, grads
+        fwd_bwd_ms = time_ms(lambda: torch.autograd.grad(
+            fn("cuda", *leaves)[0], leaves, dout), iters=3, warmup=1)
+        plain_ms = time_ms(lambda: torch.autograd.grad(
+            plain(*leaves)[0], leaves, dout), iters=1, warmup=1)
+        b_ms, b_by, nbytes = scan_bwd_bound(name, groups)
+        row = {"scan": name, "shape": f"{shape}: {what}", "groups": groups,
+               "fwd_grouped_ms": fwd_ms, "fwd_one_launch_ms": one_ms,
+               "bwd_ms": bwd_ms, "fwd_bwd_ms": fwd_bwd_ms,
+               "plain_fwd_bwd_ms": plain_ms, "bwd_bound_ms": b_ms,
+               "bwd_bound_by": b_by, "bwd_bound_bytes": nbytes,
+               "out_max_abs_err": out_err, "out_tolerance": out_tol,
+               "grad_rel_errors": grad_errs,
+               "grad_tolerance": SCAN_GRAD_TOL[name], "library_ms": None}
+        print("train_scan " + json.dumps(row))
+        rows.append(row)
+        del leaves, ins, dout
+        free_card()
+    print(f"train_scan: phase {time.monotonic() - t0:.1f} s")
+    return rows
+
+
+def train_phase(cfg, kernels, cut, steps=6, microbatches=2, batch=4,
                 seq=4096):
-    """qwen2-7b at full width, ``n_layers`` of its layers, fp32 masters
-    (parameters, gradients, m and v: 16 bytes a parameter), bf16 compute:
-    train_4k's sequence of 4096 at batch 4 as 2 microbatches of 2. First
-    the loss and the global gradient norm through the kernel against
-    ``impl="torch"`` on the same weights and batch (before any update),
-    then ``steps`` steps on one repeated batch (the loss must fall from
-    the first to the last), with step ms, tokens/s, the share of peak,
-    peak memory and flash_attention launches a step (the main path, its
-    counts read after the steps), then one profiled step. Returns the
+    """``cfg`` at full width, cut by ``cut`` (a depth, and for jamba a
+    shorter pattern), fp32 masters (parameters, gradients, m and v: 16
+    bytes a parameter), bf16 compute: train_4k's sequence of 4096 at batch
+    4 as 2 microbatches of 2. First the loss and the global gradient norm
+    through the kernels against ``impl="torch"`` on the same weights and
+    batch (before any update), then ``steps`` steps on one repeated batch
+    (the loss must fall from the first to the last), with step ms,
+    tokens/s, the share of peak, peak memory and each kernel's launches a
+    step (the main path, its counts read after the steps: attention twice
+    a layer and microbatch, forward and remat recompute; a scan as often,
+    one launch a group of 16 chunks), then one profiled step with the
+    shares of attention's and the scans' PyTorch backwards. Returns the
     path's launches."""
     from repro_torch.data import DataConfig, SyntheticTokens
+    from repro_torch.kernels.scan_groups import group_bounds
     from repro_torch.models.config import ShapeConfig
     from repro_torch.training import (OptimizerConfig, compute_grads,
                                       global_norm, make_opt_state,
                                       make_train_step)
     from repro_torch.training.optimizer import tree_leaves
+    t_phase = time.monotonic()
     full_layers = cfg.n_layers
-    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg = dataclasses.replace(cfg, **cut)
+    n_layers = cfg.n_layers
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = M.init_params(cfg, generator=gen, device="cuda",
                            dtype=torch.float32)
     n_params = sum(p.numel() for p in tree_leaves(params))
-    n_matmul = n_params - params["embed"]["table"].numel()
+    # products per token: every parameter outside the embedding, the MoE
+    # experts at top_k of n_experts
+    n_matmul = (n_params - params["embed"]["table"].numel()
+                - (cfg.num_params() - cfg.num_active_params()))
     shape = ShapeConfig("train_4k", seq, batch, "train")
     data = SyntheticTokens(cfg, shape, DataConfig(seed=SEED)).batch_at(0)
     tokens = batch * seq
-    print(f"train {cfg.name}: {n_layers} of {full_layers} layers, "
-          f"{n_params / 1e9:.3f} "
-          f"B parameters ({n_matmul / 1e9:.3f} B outside the embedding), "
+    print(f"train {cfg.name}: {n_layers} of {full_layers} layers "
+          f"(pattern {cfg.layer_pattern}), {n_params / 1e9:.3f} "
+          f"B parameters ({n_matmul / 1e9:.3f} B active outside the "
+          f"embedding, {16 * n_params / 1e9:.1f} GB at 16 bytes each), "
           f"fp32 masters, batch {batch} x {seq} as {microbatches} "
           f"microbatches, {tokens} tokens a step")
     got = {}
@@ -2124,10 +2288,10 @@ def train_phase(cfg, kernels, n_layers=8, steps=6, microbatches=2, batch=4,
     (lc, nc), (lt, nt) = got["cuda"], got["torch"]
     print(f"train {cfg.name}: before any update, loss {lc!r} (kernel) vs "
           f"{lt!r} (plain), grad norm {nc!r} vs {nt!r}")
-    why = ("bf16 attention outputs differ by about an ulp between the two "
-           f"forwards; the loss is a mean over {tokens} tokens and the norm "
-           f"runs over {n_params / 1e9:.2f} B gradients, so both move far "
-           "less than that")
+    why = ("bf16 attention and scan outputs differ by about an ulp "
+           "between the two forwards; the loss is a mean over "
+           f"{tokens} tokens and the norm runs over {n_params / 1e9:.2f} B "
+           "gradients, so both move far less than that")
     check(f"train loss kernel vs plain, relative ({why})",
           abs(lc / lt - 1), 2e-3)
     check("train grad norm kernel vs plain, relative", abs(nc / nt - 1), 2e-2)
@@ -2154,20 +2318,24 @@ def train_phase(cfg, kernels, n_layers=8, steps=6, microbatches=2, batch=4,
         losses.append(loss)
     launches = {k.name: k.launches for k in kernels}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    per_step = launches["flash_attention"] / steps
-    attn_layers = cfg.n_blocks * sum(cfg.layer_pattern.count(k) for k in "gl")
-    want = attn_layers * microbatches * 2      # forward and remat recompute
+    per_step = {name: n / steps for name, n in launches.items()}
+    layers = {kind: cfg.n_blocks * cfg.layer_pattern.count(kind)
+              for kind in "glmr"}
+    attn_layers = layers["g"] + layers["l"]
+    calls = microbatches * 2       # a layer's forward and remat recompute
+    groups = len(group_bounds(seq, 16))
+    want = {"flash_attention": attn_layers * calls, "flash_decode": 0,
+            "rwkv6_scan": layers["r"] * calls * groups,
+            "mamba_scan": layers["m"] * calls * groups, "grouped_gemm": 0}
     print(f"train {cfg.name}: losses {losses}, grad norm "
           f"{float(metrics['grad_norm'])!r}, lr {float(metrics['lr'])!r}")
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
-    assert per_step == want, (launches, want)
-    assert all(n == 0 for name, n in launches.items()
-               if name != "flash_attention"), launches
+    assert per_step == want, (per_step, want)
     ms = float(np.median(step_ms[1:]))
     attn_fwd, attn_bwd = attn_train_bound(batch // microbatches, seq,
                                           cfg.n_heads, cfg.head_dim, 0)
-    flops = (6 * n_matmul * tokens
-             + (attn_fwd + attn_bwd) * n_layers * microbatches)
+    flops = (6 * n_matmul * tokens      # the scans' fp32 work: < 0.1% of it
+             + (attn_fwd + attn_bwd) * attn_layers * microbatches)
     peak_s = flops / PEAK_FLOPS["bfloat16"]
     row = {"model": cfg.name, "layers": n_layers, "params": n_params,
            "tokens_per_step": tokens, "step_ms": step_ms,
@@ -2175,11 +2343,12 @@ def train_phase(cfg, kernels, n_layers=8, steps=6, microbatches=2, batch=4,
            "model_tflop_per_step": flops / 1e12,
            "peak_step_ms": peak_s * 1e3, "share_of_peak": peak_s / (ms / 1e3),
            "peak_allocated_gb": peak_gb, "losses": losses,
-           "flash_attention_launches_per_step": per_step}
+           "launches_per_step": {k: n for k, n in per_step.items() if n}}
     print("train_step " + json.dumps(row))
 
     # one profiled step: device busy share, attention forward (kernel) and
-    # the PyTorch backward of attention (MhaFunctionBackward's kernels)
+    # the PyTorch backwards of attention and the scans (their Functions'
+    # backward nodes, with every kernel they launch)
     from torch.profiler import ProfilerActivity, profile
     sync()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2192,22 +2361,33 @@ def train_phase(cfg, kernels, n_layers=8, steps=6, microbatches=2, batch=4,
     per_name = device_ms_by_name(prof)
     busy = sum(t for _, t in per_name.values())
     assert busy > 0, "the profiler recorded no device time"
-    attn_ms = sum(t for name, (_, t) in per_name.items() if "attn_fwd" in name)
-    bwd_ms = max((getattr(e, "device_time_total", 0.0) / 1e3
-                  for e in prof.key_averages()
-                  if "MhaFunctionBackward" in e.key), default=0.0)
-    prof_row = {"wall_ms": wall_ms, "busy_ms": busy,
-                "busy_share": busy / wall_ms,
-                "attention_fwd_kernel_ms": attn_ms,
-                "attention_fwd_kernel_share": attn_ms / busy,
-                "attention_bwd_torch_ms": bwd_ms,
-                "attention_bwd_torch_share": bwd_ms / busy}
+    averages = prof.key_averages()
+
+    def node_ms(node):
+        return max((getattr(e, "device_time_total", 0.0) / 1e3
+                    for e in averages if node in e.key), default=0.0)
+
+    prof_row = {"model": cfg.name, "wall_ms": wall_ms, "busy_ms": busy,
+                "busy_share": busy / wall_ms}
+    for label, kernel_match, node in (
+            ("attention", "attn_fwd", "MhaFunctionBackward"),
+            ("rwkv6_scan", "rwkv6_", "Rwkv6ScanFunctionBackward"),
+            ("mamba_scan", "mamba_", "MambaScanFunctionBackward")):
+        kernel_ms = sum(t for name, (_, t) in per_name.items()
+                        if kernel_match in name)
+        bwd_ms = node_ms(node)
+        if kernel_ms or bwd_ms:
+            prof_row.update({f"{label}_fwd_kernel_ms": kernel_ms,
+                             f"{label}_fwd_kernel_share": kernel_ms / busy,
+                             f"{label}_bwd_torch_ms": bwd_ms,
+                             f"{label}_bwd_torch_share": bwd_ms / busy})
     print("train_profile " + json.dumps(prof_row))
     for name, (n, t) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"train_profile:   {t:9.3f} ms {100 * t / busy:5.1f}%  {n:6d} "
               f"launches  {name[:90]}")
     del params, opt, metrics
     free_card()
+    print(f"train {cfg.name}: phase {time.monotonic() - t_phase:.1f} s")
     return launches
 
 
@@ -2318,14 +2498,24 @@ def main() -> int:
     free_card()
 
     qwen2, rwkv6 = get_config("qwen2-7b"), get_config("rwkv6-7b")
+    jamba_full = get_config("jamba-v0.1-52b")
     train_kernel_phase(torch.Generator(device="cuda").manual_seed(SEED + 7))
     free_card()
+    train_scan_phase(torch.Generator(device="cuda").manual_seed(SEED + 8))
+    free_card()
     train_paths = {
-        "qwen2-7b train (8 layers, train_4k)": train_phase(qwen2, kernels),
+        "qwen2-7b train (8 layers, train_4k)": train_phase(
+            qwen2, kernels, dict(n_layers=8)),
+        "rwkv6-7b train (8 layers, train_4k)": train_phase(
+            rwkv6, kernels, dict(n_layers=8), steps=3),
+        # jamba at 2 microbatches peaked at 81.8 GB on an H100 80GB: out of memory
+        "jamba-v0.1-52b train (pattern mm, train_4k)": train_phase(
+            jamba_full, kernels, dict(n_layers=2, layer_pattern="mm"),
+            steps=3, microbatches=4),
         "train_tenant 100m": train_tenant_phase(kernels)}
     free_card()
 
-    jamba = dataclasses.replace(get_config("jamba-v0.1-52b"), n_layers=8)
+    jamba = dataclasses.replace(jamba_full, n_layers=8)
     bf16_ulps = ("bf16 attention and scan outputs may differ by an ulp "
                  "between the two paths; through the layers that moves "
                  "logits of std ~1 by a few bf16 ulps")

@@ -27,7 +27,9 @@ port that makes a device-wide sync or releases the cache while engines may
 be capturing on other threads (a fleet's replicas are built on pool
 threads, and each engine captures its admission graphs lazily on its drive
 thread) takes this lock first. Reentrant, so a capture may be started by a
-thread that holds it."""
+thread that holds it. An engine's admission capture takes it without
+blocking and, where another thread holds it, leaves that shape eager for
+now (``GenerationEngine._capture_admit``)."""
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:

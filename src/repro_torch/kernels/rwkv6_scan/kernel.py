@@ -13,7 +13,9 @@ one kernel on the current stream and counts its launches in
 ``KERNEL.launches``. It takes CUDA tensors only: the plain version for
 the CPU is ``ops._rwkv6_torch``.
 The kernel has no backward: the wrapper raises when grad mode is on and
-an input needs a gradient (``_build.refuse_autograd``).
+an input needs a gradient (``_build.refuse_autograd``). Training calls it
+from ``ops.Rwkv6ScanFunction``'s forward, one launch a group of chunks, its
+state in and out carrying the scan from one group to the next.
 """
 from __future__ import annotations
 

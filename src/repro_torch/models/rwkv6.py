@@ -78,10 +78,12 @@ def time_mix(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     dx = _token_shift(xf, shift_state) - xf
     tm = p["tm"]
 
-    # ddlerp: data-dependent interpolation coefficients from a LoRA
+    # ddlerp: data-dependent interpolation coefficients from a LoRA. The
+    # LoRA products are fp32, with bf16 weights (the train step's copies)
+    # upcast as the reference's type promotion does
     xxx = xf + dx * tm["maa_x"]
-    lora = torch.tanh(xxx @ tm["mix_w1"]).reshape(B, S, 5, LORA_MIX)
-    mix = torch.einsum("bsfl,fld->bsfd", lora, tm["mix_w2"])     # [B,S,5,D]
+    lora = torch.tanh(xxx @ tm["mix_w1"].float()).reshape(B, S, 5, LORA_MIX)
+    mix = torch.einsum("bsfl,fld->bsfd", lora, tm["mix_w2"].float())
     maa = tm["maa"][None, None]
     xw, xk, xv, xr, xg = [
         (xf + dx * (maa[:, :, i] + mix[:, :, i])).to(compute_dtype)
@@ -96,8 +98,8 @@ def time_mix(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig, *,
     g = F.silu(proj(xg, "wg").float())
 
     # data-dependent decay, clamped into the numerically safe band
-    dlog = tm["decay_w0"] + torch.tanh(xw.float() @ tm["decay_w1"]) \
-        @ tm["decay_w2"]                                          # [B,S,D]
+    dlog = tm["decay_w0"] + torch.tanh(xw.float() @ tm["decay_w1"].float()) \
+        @ tm["decay_w2"].float()                                  # [B,S,D]
     neg = (-torch.exp(dlog)).clamp(-wkv_ops.LOG_DECAY_CLAMP, -1e-6)
     w = torch.exp(neg).reshape(B, S, H, hs)
 

@@ -23,7 +23,11 @@ shape). The step is ONE graph, captured in ``__init__`` and replayed by
 every ``step()``. Admission is one graph per (rows, bucket) shape,
 captured lazily after that shape's first call, which runs eagerly and is
 the capture's warm-up, and replayed by every later call of the shape; the
-graphs of one engine share one memory pool. Engines with "m"/"r" layers
+graphs of one engine share one memory pool. An admission capture never
+waits: where another thread holds ``CAPTURE_LOCK`` (a replica being built,
+another engine's capture) the shape stays eager this time and is captured
+on a later call, as the reference's lazily traced ``jax.jit`` never waits
+on another replica. Engines with "m"/"r" layers
 admit eagerly: they bucket by exact prompt length, so a graph per length
 would be a graph per request. Each graph binds this engine's cache, slot
 state and input buffers, so all of them are static buffers that every call
@@ -172,6 +176,7 @@ class GenerationEngine:
         self.full_cache_copies = 0      # whole-cache copies: stays 0
         self.host_syncs = 0             # device->host transfers
         self._admit_replays = 0         # admit calls that replayed a graph
+        self.captures_skipped = 0       # admission captures left for later
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._graph_launches: Dict[Any, int] = {}
         # (rows, bucket) -> (static inputs, graph, recorded launches)
@@ -308,12 +313,25 @@ class GenerationEngine:
         8 rows x 1023 tokens, 8 slots and max_len 1024, a 0.47 GB row cache
         and about 2 GB of activations, the SwiGLU's at 0.31 GB a bf16 and
         0.62 GB an fp32 intermediate. The graphs are replayed by the one
-        drive thread, one at a time."""
-        inputs = torch.zeros((k * pad_len + 3 * k,), dtype=torch.int32,
-                             device=self.device)
-        graph, launches = _capture_graph(
-            lambda: self._admit_staged(inputs, k, pad_len),
-            self._capture_stream, pool=self._admit_pool)
+        drive thread, one at a time.
+
+        The capture takes ``CAPTURE_LOCK`` without blocking. Where another
+        thread holds it, this engine does not wait for that capture (a
+        replica's whole build, its warm-up step included): it skips the
+        capture and counts it in ``captures_skipped``. The shape's next
+        call then runs eagerly on the capture stream again, as a new
+        warm-up, and captures it."""
+        if not CAPTURE_LOCK.acquire(blocking=False):
+            self.captures_skipped += 1
+            return
+        try:
+            inputs = torch.zeros((k * pad_len + 3 * k,), dtype=torch.int32,
+                                 device=self.device)
+            graph, launches = _capture_graph(
+                lambda: self._admit_staged(inputs, k, pad_len),
+                self._capture_stream, pool=self._admit_pool)
+        finally:
+            CAPTURE_LOCK.release()
         self._admit_graphs[(k, pad_len)] = (inputs, graph, launches)
 
     # -- admission ---------------------------------------------------------
@@ -324,8 +342,8 @@ class GenerationEngine:
         admitted; those with ``done`` set finished at admission (their
         single-token budget was spent by the prefill). Where admission is
         graphed, a (rows, bucket) shape seen before replays its graph; a
-        new one runs eagerly and is captured once its requests are
-        booked."""
+        new one runs eagerly and is captured once its requests are booked,
+        unless another thread is capturing (``_capture_admit``)."""
         free = self.free_slots()
         take = list(reqs[:len(free)])
         if not take:
@@ -432,7 +450,8 @@ class GenerationEngine:
         return {"steps": self.steps, "admit_calls": self.admit_calls,
                 "admitted": self.admitted,
                 "full_cache_copies": self.full_cache_copies,
-                "host_syncs": self.host_syncs}
+                "host_syncs": self.host_syncs,
+                "captures_skipped": self.captures_skipped}
 
 
 class ContinuousBatcher:

@@ -8,9 +8,10 @@ optimizer state are updated in place (the returned trees are the given
 ones). Batches may be numpy: the step moves them to the parameters'
 device.
 
-Single device only: a mesh and the cross-pod int8 gradient compression
-are multi-GPU (ROADMAP §1); recurrent layers ("m", "r") need the scans'
-backward, which their CUDA kernels do not have yet; encoder-decoder and
+Every layer kind trains: attention ("g", "l") through ``MhaFunction``, the
+recurrent layers ("m", "r") through the scans' ``MambaScanFunction`` and
+``Rwkv6ScanFunction``. Single device only: a mesh and the cross-pod int8
+gradient compression are multi-GPU (ROADMAP §1), and encoder-decoder and
 frontend models are not ported. Each raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -27,22 +28,15 @@ from ..models.transformer import check_supported
 from .optimizer import (OptimizerConfig, adamw_update, init_opt_state,
                         tree_leaves, tree_map)
 
-TRAINABLE_KINDS = ("g", "l")
-
-
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot train yet."""
+    """Raise ``NotImplementedError`` for what the port cannot train yet:
+    encoder-decoder and frontend models. Every layer kind that the port
+    serves (``models.transformer.KINDS``) trains."""
     if cfg.is_encdec or cfg.frontend:
         raise NotImplementedError(
             f"{cfg.name}: encoder-decoder and frontend models are not ported "
             "yet (ROADMAP §1 item 2)")
     check_supported(cfg)
-    kinds = sorted(set(cfg.layer_pattern) - set(TRAINABLE_KINDS))
-    if kinds:
-        raise NotImplementedError(
-            f"{cfg.name}: training layer kinds {kinds} needs the scans' "
-            "backward, which their CUDA kernels do not have yet (ROADMAP §1 "
-            "item 1)")
 
 
 def _device_batch(batch: Dict[str, Any], device: torch.device

@@ -15,15 +15,20 @@ window cut to 8 positions so that it binds at these lengths):
   and the greedy tokens are the JAX engine's;
 - recurrent engines ("m"/"r", exact-length buckets) admit without graphs;
 - threads entering the capture section, and threads that hold the lock for
-  a device-wide sync, never overlap (stand-in graph, streams and body).
+  a device-wide sync, never overlap (stand-in graph, streams and body);
+- an engine meeting new shapes while another thread holds the lock admits
+  them eagerly, skips their captures and keeps stepping, and captures
+  them on a later call.
 
 On the card (marker ``cuda``; skipped without one): graphed against eager
 admission (both with the graphed step), tokens and launch counts equal and
 the second drain all replays; the admit body under
 ``torch.cuda.set_sync_debug_mode("error")``; recurrent engines build no
-admission graph; and the concurrent-capture fault as a regression test: two
+admission graph; the concurrent-capture fault as a regression test: two
 graphed engines built and driven at once on two threads, while the main
-thread syncs the device and releases the allocator's cache under the lock.
+thread syncs the device and releases the allocator's cache under the lock;
+and a live engine meeting new shapes while another thread builds an
+engine under the lock, which must keep stepping.
 
 Tolerances: tokens, slot lengths, budgets, active flags and first tokens
 are compared exactly; the bf16 K/V cache against the JAX engine's to one
@@ -251,6 +256,70 @@ def test_graph_admission_gives_jax_tokens_and_slot_state(
     assert eng.admit_calls == 4 and eng.full_cache_copies == 0
 
 
+def _hold_capture_lock(work=lambda: None):
+    """A thread that takes ``CAPTURE_LOCK``, runs ``work()`` under it (a
+    replica's build, say) and holds it until released. Returns (thread,
+    its taken event, its release event, its errors)."""
+    taken, release, errors = threading.Event(), threading.Event(), []
+
+    def hold():
+        with CAPTURE_LOCK:
+            taken.set()
+            try:
+                work()
+            except Exception as e:      # reported by the main thread
+                errors.append(e)
+            release.wait(timeout=120)
+    thread = threading.Thread(target=hold, name="lock-holder")
+    thread.start()
+    assert taken.wait(timeout=60)
+    return thread, release, errors
+
+
+def _drive_round(engine, prompts, uid0, timeout=120):
+    """``_admit_and_drain`` on a thread of its own, which must end within
+    ``timeout`` (an admission that waited on the capture lock would not)."""
+    out = {}
+    thread = threading.Thread(target=lambda: out.update(
+        reqs=_admit_and_drain(engine, Request, prompts, uid0)))
+    thread.start()
+    thread.join(timeout=timeout)
+    assert not thread.is_alive(), "the round waited on another's capture"
+    return [r.tokens for r in out["reqs"]]
+
+
+def test_admission_capture_never_waits_on_another_thread(stand_in_capture):
+    """While another thread holds ``CAPTURE_LOCK``, a graph-admitting
+    engine that meets new admission shapes admits them eagerly, skips their
+    captures (``captures_skipped``) and keeps stepping; once the lock is
+    free, the next call of each shape runs eagerly again and captures it,
+    and the call after replays it. Tokens equal an eager engine's in every
+    round."""
+    cfg = _cfg("qwen2-7b")
+    params = init_params(cfg, generator=torch.Generator().manual_seed(1),
+                         device="cpu", dtype=F32)
+    eng, twin = _graph_admitting(_engine(cfg, params)), _engine(cfg, params)
+    rounds = [_round(cfg.vocab, seed=40)] * 3
+    want = [[r.tokens for r in _admit_and_drain(twin, Request, p, 10 * i)]
+            for i, p in enumerate(rounds)]
+    holder, release, errors = _hold_capture_lock()
+    try:
+        assert _drive_round(eng, rounds[0], 0) == want[0]
+        assert eng.captures_skipped == 2 and eng._admit_graphs == {}
+        assert stand_in_capture == [] and eng.steps > 0
+    finally:
+        release.set()
+        holder.join(timeout=60)
+    assert not holder.is_alive() and not errors
+    assert _drive_round(eng, rounds[1], 10) == want[1]
+    assert set(eng._admit_graphs) == {(2, 8), (2, 16)}
+    assert eng._admit_replays == 0
+    assert _drive_round(eng, rounds[2], 20) == want[2]
+    assert eng._admit_replays == 2
+    assert eng.counters()["captures_skipped"] == 2
+    assert eng.host_syncs == eng.admit_calls + eng.steps
+
+
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_recurrent_engines_build_no_admit_graph(stand_in_capture, arch):
     """Exact-length buckets would make a graph per request: an "m"/"r"
@@ -464,14 +533,55 @@ def test_recurrent_engines_admit_eagerly_on_the_card(cuda, arch):
 
 
 @pytest.mark.cuda
+def test_live_engine_keeps_stepping_while_another_builds(cuda):
+    """The open fault of a live replica that met a new admission shape
+    while another replica was built, as a regression test: a thread takes
+    ``CAPTURE_LOCK``, builds a graphed engine under it (its decode graph's
+    capture) and holds the lock until released. Meanwhile a live graphed
+    engine drives a round of new shapes: it must finish the round (admit
+    eagerly, skip both captures, step) before the lock is released, with a
+    lone engine's tokens. Then the next round captures both shapes and the
+    one after replays them, with the same tokens."""
+    cfg, params = _card_model("qwen2-7b", cuda)
+    rounds = [_round(cfg.vocab, seed=50)] * 3
+
+    def build():
+        return GenerationEngine(cfg, params, slots=4, max_len=MAX_LEN,
+                                device=cuda)
+
+    lone = build()
+    want = [[r.tokens for r in _admit_and_drain(lone, Request, p, 10 * i)]
+            for i, p in enumerate(rounds)]
+    live = build()
+    built = []
+    holder, release, errors = _hold_capture_lock(lambda: built.append(build()))
+    try:
+        assert _drive_round(live, rounds[0], 0) == want[0]
+        assert holder.is_alive()          # the lock was held all along
+        assert live.captures_skipped == 2 and live._admit_graphs == {}
+    finally:
+        release.set()
+        holder.join(timeout=120)
+    assert not holder.is_alive() and not errors
+    assert built and built[0]._graph is not None
+    assert _drive_round(live, rounds[1], 10) == want[1]
+    assert set(live._admit_graphs) == {(2, 8), (2, 16)}
+    assert _drive_round(live, rounds[2], 20) == want[2]
+    assert live._admit_replays == 2 and live.captures_skipped == 2
+
+
+@pytest.mark.cuda
 def test_two_graphed_engines_built_at_once_on_two_threads(cuda):
     """The concurrent-capture fault as a regression test. In each of four
     trials two threads, released together, each build a graphed engine
     (its decode graph's capture) and drive two rounds (capturing its
-    admission graphs on its own thread, then replaying them), while the
-    main thread syncs the device and releases the allocator's cache in a
-    loop under ``CAPTURE_LOCK``. Every build and drive succeeds, and each
-    engine's tokens equal a lone engine's."""
+    admission graphs on its own thread and replaying them, or, where
+    another thread holds ``CAPTURE_LOCK``, leaving a shape eager for a
+    later call), while the main thread syncs the device and releases the
+    allocator's cache in a loop under the lock. Every build and drive
+    succeeds, each engine's tokens equal a lone engine's, and each
+    eager call of a shape not yet captured either captured it or counted
+    a skipped capture."""
     cfg, params = _card_model("qwen2-7b", cuda)
     rounds = [_round(cfg.vocab, seed=30 + r) for r in range(2)]
 
@@ -516,5 +626,6 @@ def test_two_graphed_engines_built_at_once_on_two_threads(cuda):
             tokens, engine = got[i]
             assert tokens == want, (trial, i)
             assert engine._graph is not None
-            assert len(engine._admit_graphs) == 2
-            assert engine._admit_replays == 2
+            assert engine.admit_calls == 4
+            assert (len(engine._admit_graphs) + engine.captures_skipped
+                    == engine.admit_calls - engine._admit_replays)

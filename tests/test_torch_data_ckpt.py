@@ -231,6 +231,21 @@ def test_launch_train_runs_saves_and_resumes(tmp_path, capsys):
     assert CheckpointManager(str(tmp_path)).all_steps() == [3, 4, 5]
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-v0.1-52b"])
+def test_launch_train_trains_recurrent_archs(tmp_path, capsys, arch):
+    """``--arch rwkv6-7b`` and ``--arch jamba-v0.1-52b`` with ``--reduced``
+    train on the CPU (through the scans' training form): 2 steps, finite
+    losses."""
+    from repro_torch.launch.train import main
+    assert main(["--arch", arch, "--reduced", "--batch", "2", "--seq", "16",
+                 "--steps", "2", "--log-every", "1", "--device", "cpu"]) == 0
+    steps = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("step")]
+    assert [ln.split()[1] for ln in steps] == ["1", "2"]
+    assert all(np.isfinite(float(ln.split("loss=")[1].split()[0]))
+               for ln in steps)
+
+
 def _example():
     path = REPO / "examples" / "train_tenant_job_torch.py"
     spec = importlib.util.spec_from_file_location("train_tenant_job_torch",

@@ -575,11 +575,11 @@ def test_fleet_on_the_card(cuda):
             "WorkUnit", SERVING_NS)] == ["Ready", "Ready"], timeout=120)
         # keep both busy (40 requests of 32 tokens on 8 slots), then grow:
         # engine-2 is built meanwhile. A first round of the same load lets
-        # each replica capture the admission shapes it meets (a replica
-        # capturing a shape waits for engine-2's capture under CAPTURE_LOCK,
-        # and cannot step meanwhile); then, since the two may drain 40
-        # requests before the resize reaches a node agent, requests keep
-        # coming until engine-2 is built (at most 2,000)
+        # each replica capture the admission shapes it meets (a shape met
+        # while engine-2 captures stays eager: ``captures_skipped``); then,
+        # since the two may drain 40 requests before the resize reaches a
+        # node agent, requests keep coming until engine-2 is built (at most
+        # 2,000)
         rng = np.random.default_rng(6)
 
         def submit():
