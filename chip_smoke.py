@@ -23,7 +23,15 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    its time, the plain version's, one PyTorch library call's where one
    computes the same function, and its bound (kernel and library times are
    device time, ``graph_ms``; ``events_ms`` keeps the back-to-back event
-   timing of earlier runs). The grouped
+   timing of earlier runs). Prefill attention also runs non-causal at
+   seamless-m4t-large-v2's heads (H = KV = 16, D 64) in the
+   encoder-decoder's three roles: the encoder (B 2, S = T 1024), a
+   prompt's cross-attention (B 2, S 512, T 1024) and the decode step's
+   one-row cross query (B 8, S 1, T 1024), then at the speech path's own
+   shapes (B 8, 1000 frames: a ragged last kv tile; the 16-token prompts'
+   causal self-attention too), each in fp32 and bf16
+   (``encdec_attention_phase``); decode also runs at seamless-m4t's and
+   internvl2-2b's heads. The grouped
    GEMM, which no model calls, is driven on its own path: a dropless MoE
    feed-forward through the op at the expert widths of olmoe-1b-7b,
    qwen3-moe-30b-a3b and jamba-v0.1-52b, with group sizes from the port's
@@ -38,7 +46,9 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    dq/dk/dv through the kernel against the same backward on the plain
    forward, and against "ref" autograd at B 1, S 300; the forward's time
    with and without the lse, the PyTorch backward's, and SDPA's forward
-   plus backward beside them (``train_kernel {...}``). The scans'
+   plus backward beside them (``train_kernel {...}``); then the trace
+   readers that the training profiles use, held against the profiler's
+   ``key_averages`` on one short window (``trace_readers {...}``). The scans'
    training form at their training shapes (rwkv6 B 2, S 4096, H 64, D 64
    bf16; mamba Bt 2, S 4096, DI 8192, N 16 fp32): ``Rwkv6ScanFunction``
    and ``MambaScanFunction`` through the kernel (one launch a group of 16
@@ -53,11 +63,17 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    would need ~121 GB), 3 steps; jamba-v0.1-52b cut to the pattern "mm"
    (2 Mamba layers, one with the dense feed-forward and one with all 16
    experts: 3.74 B; one period of 8 would need ~213 GB), 3 steps as 4
-   microbatches of 1 (at 2 it ran out of memory). Each:
+   microbatches of 1 (at 2 it ran out of memory); and at full depth
+   seamless-m4t-large-v2 (24 encoder and 24 decoder layers, 2.04 B; the
+   pipeline's frames as long as the tokens, so the encoder and the
+   cross-attention attend over S x T = 4096 x 4096 pairs, non-causal) and
+   internvl2-2b (24 layers, 1.90 B, 256 patches a row), 3 steps each. Each:
    loss and gradient norm through the kernels against the plain path
    before any update, the loss falling, each kernel's launches a step
    (attention and the scans: layers x 2 microbatches x forward and remat
-   recompute, the scans x 16 groups), step ms, tokens/s, share of the
+   recompute, the scans x 16 groups; the encoder's blocks are recomputed
+   too, and seamless runs three attentions a decoder layer and encoder
+   layer pair), step ms, tokens/s, share of the
    bf16 peak, peak memory (``train_step {...}``) and one profiled step
    with the PyTorch backwards' shares (``train_profile {...}``). Then
    ``examples/train_tenant_job_torch.py``'s ``100m`` preset through a live
@@ -71,7 +87,11 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    cache of 8192 positions, where its 4096-position window binds, with the
    window's effect shown by a run without it: ``window_phase``),
    jamba-v0.1-52b at full width with one period of 8 layers, in bf16 and
-   once more in fp32 (compute and cache);
+   once more in fp32 (compute and cache); seamless-m4t-large-v2 (2
+   encoder and 2 decoder layers, 300 seeded frames prefilled into a cross
+   cache of 300 rows, the decode steps attending to it) and internvl2-2b
+   (2 layers, 256 seeded patches, prompts of 320 and 290 tokens), each in
+   bf16 and fp32;
 6. serving: each model behind ``ContinuousBatcher`` with 3 WRR tenants
    (weights 1, 1, 2) and seeded bf16 weights, served by two engines on
    the same weights in one process: the default one, whose decode step is
@@ -97,7 +117,14 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    16 experts; its 32 layers, ~104 GB in bf16, do not fit one 80 GB card);
    gemma2-9b at full width and depth (42 layers, alternating "l" and "g",
    softcaps 50 and 30, a tied table of 256,000 rows), then served at
-   max_len 8192 with prompts past its window (``long_window_drain``).
+   max_len 8192 with prompts past its window (``long_window_drain``);
+   seamless-m4t-large-v2 at full depth (its engine, as the reference's,
+   passes no frames: the decoder cross-attends to a zero cross cache of
+   max_len rows, one more ``flash_attention`` a layer in every step and
+   admit call), then its speech path eagerly (``speech_phase``: B 8, 1000
+   frames, prompts of 16, 32 decode steps: prefill ms and the encoder's
+   share, the step against its bound, launches); internvl2-2b at full
+   depth (24 layers, served as a text model).
    Each model is freed before the next loads. The launch counters, set to
    0 before each drain and read after it, show that every prefill and
    decode went through the kernels (a graph's replay adds the launches its
@@ -254,14 +281,17 @@ def attn_bound(B, S, T, H, KV, D, causal, window, esize=2):
     return bound(nbytes, flops, "bfloat16")
 
 
-def prefill_shape(gen, label, B, S, H, KV, D, window, softcap, sdpa):
-    """bf16 causal prefill at a served shape, q, k, v drawn from ``gen``:
-    kernel vs plain version (tol 2e-2), its time, the plain version's,
-    SDPA's where ``sdpa`` names the call (else None: SDPA has no softcap),
-    and the bound. Printed as ``prefill_shape {...}``."""
+def prefill_shape(gen, label, B, S, H, KV, D, window, softcap, sdpa, *,
+                  T=None, causal=True, iters=20):
+    """bf16 prefill attention at a served shape (T keys, S by default;
+    causal unless asked otherwise), q, k, v drawn from ``gen``: kernel vs
+    plain version (tol 2e-2), its time, the plain version's, SDPA's where
+    ``sdpa`` names the call (else None: SDPA has no softcap), and the
+    bound. Printed as ``prefill_shape {...}``."""
+    T = S if T is None else T
     q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
-               for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
-    kw = dict(causal=True, window=window, softcap=softcap)
+               for shape in ((B, S, H, D), (B, T, KV, D), (B, T, KV, D)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
     out = mha(q, k, v, impl="cuda", **kw)
     ref = mha(q, k, v, impl="torch", **kw)
     sync()
@@ -269,8 +299,8 @@ def prefill_shape(gen, label, B, S, H, KV, D, window, softcap, sdpa):
     err = max_err(out, ref)
     check(f"flash_attention {label}", err, 2e-2)
     del out, ref
-    ms = graph_ms(lambda: mha(q, k, v, impl="cuda", **kw))
-    events_ms = time_ms(lambda: mha(q, k, v, impl="cuda", **kw))
+    ms = graph_ms(lambda: mha(q, k, v, impl="cuda", **kw), iters=iters)
+    events_ms = time_ms(lambda: mha(q, k, v, impl="cuda", **kw), iters=iters)
     plain_ms = time_ms(lambda: mha(q, k, v, impl="torch", **kw), iters=3,
                        warmup=1)
     library_ms, library = None, sdpa
@@ -279,9 +309,9 @@ def prefill_shape(gen, label, B, S, H, KV, D, window, softcap, sdpa):
     else:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True))
-    b_ms, b_by = attn_bound(B, S, S, H, KV, D, True, window)
-    flops = 4 * D * attn_pairs(S, S, True, window) * B * H
+            qt, kt, vt, is_causal=causal, enable_gqa=True), iters=iters)
+    b_ms, b_by = attn_bound(B, S, T, H, KV, D, causal, window)
+    flops = 4 * D * attn_pairs(S, T, causal, window) * B * H
     row = {"shape": label, "max_abs_err": err, "tolerance": 2e-2, "ms": ms,
            "events_ms": events_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "library": library,
@@ -337,6 +367,52 @@ def prefill_phase(gen):
             "bound_ms": row["bound_ms"], "bound_us": row["bound_ms"] * 1e3,
             "bound_by": row["bound_by"], "tflops": row["tflops"],
             "served_shapes": shapes}
+
+
+ENCDEC_SHAPES = [
+    # label, B, S, T, causal: seamless-m4t-large-v2's heads (H = KV = 16,
+    # D 64). The kernel phase's shapes (whole kv tiles), then the speech
+    # path's own (``speech_phase``: 1000 frames leave a ragged last kv tile)
+    ("seamless encoder B2 S1024 T1024", 2, 1024, 1024, False),
+    ("seamless cross B2 S512 T1024", 2, 512, 1024, False),
+    ("seamless decode cross B8 S1 T1024", 8, 1, 1024, False),
+    ("seamless speech encoder B8 S1000 T1000", 8, 1000, 1000, False),
+    ("seamless speech self-attention B8 S16 T16", 8, 16, 16, True),
+    ("seamless speech cross B8 S16 T1000", 8, 16, 1000, False),
+    ("seamless speech decode cross B8 S1 T1000", 8, 1, 1000, False),
+]
+
+
+def encdec_attention_phase():
+    """The prefill kernel in the encoder-decoder's roles at seamless's
+    heads (H = KV = 16, D 64): bidirectional encoder attention (S = T),
+    cross-attention of a prompt to the encoder output (S < T) and the
+    decode step's one-row query against the cross cache, all non-causal,
+    at the kernel phase's shapes and at the speech path's (with its
+    prompts' causal self-attention). Each in fp32 against the plain
+    version (tol 2e-5), then timed in bf16 beside the plain version, SDPA
+    (no softcap in seamless) and the bound (``prefill_shape``, tol 2e-2).
+    Inputs from a generator of their own. Returns the bf16 rows."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    H = KV = 16
+    D = 64
+    rows = []
+    for label, B, S, T, causal in ENCDEC_SHAPES:
+        kind = "causal" if causal else "non-causal"
+        q = torch.randn((B, S, H, D), generator=gen, device="cuda")
+        k, v = (torch.randn((B, T, KV, D), generator=gen, device="cuda")
+                for _ in range(2))
+        out = mha(q, k, v, causal=causal, impl="cuda")
+        ref = mha(q, k, v, causal=causal, impl="torch")
+        sync()
+        check(f"flash_attention {label} H{H} KV{KV} D{D} fp32 {kind}",
+              max_err(out, ref), 2e-5)
+        del q, k, v, out, ref
+        rows.append(prefill_shape(
+            gen, f"{label} H{H} KV{KV} D{D} bf16 {kind}", B, S, H, KV, D,
+            0, 0.0, sdpa="SDPA, is_causal" if causal else "SDPA, no mask",
+            T=T, causal=causal, iters=50 if S <= 16 else 20))
+    return rows
 
 
 def decode_bound(lengths, B, H, KV, D, window=0):
@@ -398,7 +474,9 @@ def decode_phase(gen):
     """Decode kernel vs its plain version at B 8, L 1024, ragged lengths
     (qwen2-7b's heads): four dtype, window and softcap checks and the timed
     row, drawn from ``gen``; then timed checks at jamba's heads (H 32, KV
-    8) and gemma2-9b's (D 256, window 4096, softcap 50), drawn from a
+    8), gemma2-9b's (D 256, window 4096, softcap 50), seamless-m4t's (H =
+    KV = 16, D 64; also at the speech path's cache of 64 positions) and
+    internvl2-2b's (H 16, KV 8, D 128), drawn from a
     generator of their own so that the later phases' inputs do not depend
     on them."""
     B, L, H, KV, D = 8, 1024, 28, 4, 128
@@ -440,7 +518,13 @@ def decode_phase(gen):
     shapes = [decode_shape(served, "jamba heads", 8, 1024, 32, 8, 128, 0,
                            0.0),
               decode_shape(served, "gemma2-9b heads", 8, 1024, 16, 8, 256,
-                           4096, 50.0)]
+                           4096, 50.0),
+              decode_shape(served, "seamless-m4t-large-v2 heads", 8, 1024,
+                           16, 16, 64, 0, 0.0),
+              decode_shape(served, "seamless-m4t-large-v2 heads, speech "
+                           "cache", 8, 64, 16, 16, 64, 0, 0.0),
+              decode_shape(served, "internvl2-2b heads", 8, 1024, 16, 8,
+                           128, 0, 0.0)]
     return {"name": "flash_decode", "route": "cuda",
             "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
             "replaces": "src/repro/kernels/flash_decode/kernel.py:65",
@@ -884,13 +968,19 @@ def capacity_check(cfg, x, p):
 
 
 def parity_phase(cfg, n_layers, tol, why, compute_dtype=torch.bfloat16,
-                 lens=(100, 37), max_len=256):
-    """Full width, ``n_layers`` layers: kernels vs plain versions on the
-    same seeded bf16 weights and inputs, computing (and caching K/V) in
-    ``compute_dtype``: two right-padded prompts of ``lens`` tokens
-    prefilled into a cache of ``max_len``, then 4 decode steps. Returns the
-    kernels' logits [5, 2, 1, vocab] (fp32)."""
-    cfg2 = dataclasses.replace(cfg, n_layers=n_layers)
+                 lens=(100, 37), max_len=256, frames=0):
+    """Full width, ``n_layers`` layers (an encoder-decoder's encoder too):
+    kernels vs plain versions on the same seeded bf16 weights and inputs,
+    computing (and caching K/V) in ``compute_dtype``: two right-padded
+    prompts of ``lens`` tokens prefilled into a cache of ``max_len``, with
+    ``frames`` seeded frames (x 0.1, as the data pipeline makes them) into
+    a cross cache of as many rows for an encoder-decoder, and the
+    ``frontend_tokens`` seeded patches for a ``vit_stub`` model; then 4
+    decode steps. Returns the kernels' logits [5, 2, 1, vocab] (fp32)."""
+    cut = dict(n_layers=n_layers)
+    if cfg.is_encdec:
+        cut["n_enc_layers"] = n_layers
+    cfg2 = dataclasses.replace(cfg, **cut)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = M.init_params(cfg2, generator=gen, device="cuda",
                            dtype=torch.bfloat16)
@@ -900,14 +990,23 @@ def parity_phase(cfg, n_layers, tol, why, compute_dtype=torch.bfloat16,
     for i, n in enumerate(lens):
         toks[i, :n] = rng.integers(0, cfg.vocab, n)
     steps = rng.integers(0, cfg.vocab, (4, 2, 1)).astype(np.int32)
+    frontend = {}
+    if cfg.is_encdec:
+        assert frames > 0
+        frontend["frames"] = torch.from_numpy(rng.standard_normal(
+            (2, frames, cfg.frontend_dim)).astype(np.float32) * 0.1).cuda()
+    elif cfg.frontend == "vit_stub":
+        frontend["patches"] = torch.from_numpy(rng.standard_normal(
+            (2, cfg.frontend_tokens, cfg.frontend_dim)).astype(
+                np.float32)).cuda()
     logits = {}
     for impl in ("cuda", "torch"):
-        cache = M.init_cache(cfg2, 2, max_len, dtype=compute_dtype,
-                             device="cuda")
+        cache = M.init_cache(cfg2, 2, max_len, enc_len=frames,
+                             dtype=compute_dtype, device="cuda")
         out, cache, lengths = M.prefill(
             params, cfg2, torch.from_numpy(toks).cuda(), cache,
             lengths=torch.from_numpy(lens).cuda(), impl=impl,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, **frontend)
         seq = [out]
         lengths = lengths + 1
         for s in steps:
@@ -921,15 +1020,45 @@ def parity_phase(cfg, n_layers, tol, why, compute_dtype=torch.bfloat16,
     assert torch.isfinite(a).all() and a.shape == (5, 2, 1, cfg.vocab)
     err = max_err(a, b)
     agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    fe = {k: tuple(v.shape) for k, v in frontend.items()}
     print(f"parity {cfg.name} full width, {n_layers} layers, "
           f"{str(compute_dtype).split('.')[-1]}, prompts {lens.tolist()}, "
-          f"max_len {max_len}, window {cfg.sliding_window}: logits "
+          f"frontend {fe}, max_len {max_len}, window {cfg.sliding_window}: "
+          f"logits "
           f"max_abs_err={err!r} (logit std {float(b.std())!r}), argmax "
           f"agreement {agree!r}; tolerance {tol}: {why}")
     check(f"parity logits {cfg.name} {compute_dtype} prompts "
           f"{lens.tolist()} window {cfg.sliding_window}", err, tol)
     del params
     return a
+
+
+BF16_ULPS = ("bf16 attention and scan outputs may differ by an ulp between "
+             "the two paths; through the layers that moves logits of std ~1 "
+             "by a few bf16 ulps")
+
+
+def encdec_parity_phase(seamless, internvl):
+    """``parity_phase`` for the encoder-decoder (300 seeded frames into a
+    cross cache of 300 rows, the decode steps attending to it) and the
+    ``vit_stub`` frontend (256 patches, then 64 and 34 prompt tokens past
+    them), 2 layers each, bf16 and fp32. The limits come from the readings
+    on an H100 80GB HBM3 (700 W): 0.03125 in bf16 for both models (one ulp
+    of the largest logits, |logit| in [4, 8), std 0.88), 2.7e-6 and 2.3e-6
+    in fp32; each limit is twice the bf16 reading and ~8x the fp32 ones."""
+    read = ("; measured 0.03125 on an H100, one bf16 ulp of the largest "
+            "logits (in [4, 8)): the limit is two")
+    fp32 = ("fp32 compute and cache, bf16 weights: the fp32 kernels and the "
+            "plain versions sum in other orders (~1e-6 relative), logits of "
+            "std ~1; measured 2.7e-6 (seamless) and 2.3e-6 (internvl2-2b) "
+            "on an H100")
+    parity_phase(seamless, 2, 0.0625, BF16_ULPS + read, frames=300)
+    parity_phase(seamless, 2, 2e-5, fp32, compute_dtype=torch.float32,
+                 frames=300)
+    parity_phase(internvl, 2, 0.0625, BF16_ULPS + read, lens=(320, 290),
+                 max_len=512)
+    parity_phase(internvl, 2, 2e-5, fp32, compute_dtype=torch.float32,
+                 lens=(320, 290), max_len=512)
 
 
 def window_phase(cfg, tol, why):
@@ -1010,17 +1139,14 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile_admits=False,
           f"ms more); recorded launches a replay {recorded}")
 
     engine = twins[True][0]
-    w_bytes = sum(t.numel() * t.element_size()
-                  for t in _leaves(params) if t.dim() >= 2)
-    if not cfg.tie_embeddings:       # else the head reads all of the table
-        table = params["embed"]["table"]
-        w_bytes -= table.numel() * table.element_size()  # only rows gathered
+    w_bytes = decode_weight_bytes(cfg, params)
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in _leaves(engine.cache))
     step_bound_ms = (w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
     print(f"serving {cfg.name}: decode step bound {step_bound_ms:.2f} ms "
           f"({(w_bytes + cache_bytes) / 1e9:.2f} GB of weights and cache per "
-          f"step at 3.35 TB/s)")
+          f"step at 3.35 TB/s: weights {w_bytes / 1e9:.3f} GB, cache "
+          f"{cache_bytes / 1e9:.3f} GB)")
 
     runs = []
     for graphed in (True, False, True, False):
@@ -1072,6 +1198,20 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile_admits=False,
         "drains": [{k: r[k] for k in ("twin", "tokens_s", "step_median_ms",
                                       "ttft_ms", "admits")} for r in runs]}))
     return runs[0]["launches"], (params, engine)
+
+
+def decode_weight_bytes(cfg, params):
+    """Bytes of the matrices a decode step reads: every parameter of two or
+    more dimensions, less the embedding table where the head has its own
+    (only the step's rows are gathered), and less what the step never
+    reads: the encoder, ``frontend_proj`` and the cross-attention's K/V
+    projections (the step attends to the cached cross K/V)."""
+    skip = ("/enc_blocks/", "/frontend_proj/", "/cross/wk/", "/cross/wv/")
+    if not cfg.tie_embeddings:
+        skip += ("/embed/",)
+    return sum(t.numel() * t.element_size()
+               for key, t in _flat_items(params) if t.dim() >= 2
+               and not any(k in key + "/" for k in skip))
 
 
 def sync_free_step(cfg, engine):
@@ -1182,6 +1322,90 @@ def long_window_drain(cfg, kernels, params, *, max_new=8):
     del engine, batcher
     free_card()
     return runs[1]["launches"]
+
+
+def speech_phase(cfg, kernels, params, *, B=8, n_frames=1000, prompt=16,
+                 steps=32):
+    """seamless at full depth on its speech path, eagerly (the engine takes
+    no frames, as the reference's): ``B`` utterances of ``n_frames`` seeded
+    frames (x 0.1, as the data pipeline makes them) and prompts of
+    ``prompt`` tokens, one prefill with the frames into a cache whose cross
+    K/V hold ``n_frames`` rows, then ``steps`` greedy decode steps. After a
+    warm-up prefill: the prefill's ms (host clock, synced) and the
+    encoder's share of it (the encoder alone on the same frames), each
+    decode step's ms against its bound (the matrices the step reads, and
+    the whole cache: self K/V and cross K/V, at 3.35 TB/s), and each
+    kernel's launches, counted from 0 before the prefill: the prefill
+    launches ``flash_attention`` three times a layer (encoder, causal
+    self-attention, cross-attention) and every step once a layer (the
+    one-row cross query) beside one ``flash_decode``. Returns the
+    launches."""
+    from repro_torch.models.transformer import _encode
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(SEED + 11)
+    frames = torch.from_numpy(rng.standard_normal(
+        (B, n_frames, cfg.frontend_dim)).astype(np.float32) * 0.1).cuda()
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, prompt)).astype(np.int32)).cuda()
+    cache = M.init_cache(cfg, B, prompt + steps + 16, enc_len=n_frames,
+                         device="cuda")
+    cache_bytes = sum(t.numel() * t.element_size() for t in _leaves(cache))
+    w_bytes = decode_weight_bytes(cfg, params)
+    bound_ms = (w_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    with torch.inference_mode():
+        M.prefill(params, cfg, toks, cache, frames=frames)    # warm-up
+        sync()
+        enc_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            _encode(params, frames, cfg, None, torch.bfloat16)
+            sync()
+            enc_ms.append((time.perf_counter() - t0) * 1e3)
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        logits, cache, lengths = M.prefill(params, cfg, toks, cache,
+                                           frames=frames)
+        sync()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        assert bool(cache["sub0"]["cross_k"].abs().amax() > 0)
+        out, step_ms = [], []
+        lengths = lengths + 1
+        for _ in range(steps):
+            assert bool(torch.isfinite(logits).all())
+            nxt = logits[:, 0, :cfg.vocab].argmax(dim=-1).int()[:, None]
+            out.append(nxt)
+            sync()
+            t0 = time.perf_counter()
+            logits, cache, lengths = M.decode_step(params, cfg, nxt, cache,
+                                                   lengths)
+            sync()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = {k.name: k.launches for k in kernels}
+    attn = cfg.n_blocks * cfg.layer_pattern.count("g")
+    want = {"flash_attention": cfg.n_enc_layers + 2 * attn + attn * steps,
+            "flash_decode": attn * steps}
+    assert {k: launches[k] for k in want} == want, (launches, want)
+    enc = float(np.median(enc_ms))
+    row = {"model": cfg.name, "layers": cfg.n_layers,
+           "enc_layers": cfg.n_enc_layers, "batch": B, "frames": n_frames,
+           "prompt": prompt, "steps": steps, "prefill_ms": prefill_ms,
+           "encoder_ms": enc, "encoder_share": enc / prefill_ms,
+           "step_ms_median": float(np.median(step_ms)),
+           "step_bound_ms": bound_ms, "step_bound_gb": {
+               "weights": w_bytes / 1e9, "cache": cache_bytes / 1e9},
+           "launches": launches,
+           "tokens": torch.cat(out, dim=1)[0, :8].tolist()}
+    print(f"speech {cfg.name}: {B} x {n_frames} frames, prompts of {prompt}: "
+          f"prefill {prefill_ms:.1f} ms, the encoder {enc:.1f} ms of it "
+          f"({100 * enc / prefill_ms:.1f}%); decode step median "
+          f"{row['step_ms_median']:.2f} ms over {steps} eager steps (bound "
+          f"{bound_ms:.3f} ms); launches {launches}")
+    print("speech " + json.dumps(row))
+    del cache, logits
+    free_card()
+    print(f"speech {cfg.name}: phase {time.monotonic() - t_phase:.1f} s")
+    return launches
 
 
 def memory_gb():
@@ -1396,12 +1620,16 @@ def expected_launches(cfg, counters):
     per admit call (prefill; every prompt is >= 16 tokens, so no one-token
     prefill takes the decode recurrence), one per attention layer per
     decode step (the scans' decode steps are plain PyTorch, as in the
-    reference)."""
+    reference). An encoder-decoder's cross-attention adds one prefill
+    launch per attention layer to every admit call and every decode step
+    (a one-row query against the cross cache)."""
     layers = {kind: cfg.n_blocks * cfg.layer_pattern.count(kind)
               for kind in "glmr"}
     attn = layers["g"] + layers["l"]
+    cross = attn if cfg.is_encdec else 0
     admits, steps = counters["admit_calls"], counters["steps"]
-    return {"flash_attention": attn * admits, "flash_decode": attn * steps,
+    return {"flash_attention": attn * admits + cross * (admits + steps),
+            "flash_decode": attn * steps,
             "rwkv6_scan": layers["r"] * admits,
             "mamba_scan": layers["m"] * admits, "grouped_gemm": 0}
 
@@ -1891,16 +2119,108 @@ def profile_decode(cfg, engine, batcher, label, n_steps=4):
             "decode_attention_launches_per_step": combines / n_steps}
 
 
+def trace_events(prof):
+    """A profiler's raw Kineto events, hidden ones left out. Read directly:
+    ``prof.events()`` first builds a tree of Python ``FunctionEvent``s,
+    which took 130 s of host time for one seamless train step (~10^5
+    kernels); these readers take seconds."""
+    return [e for e in prof.profiler.kineto_results.events()
+            if not getattr(e, "is_hidden_event", lambda: False)()]
+
+
 def device_ms_by_name(prof):
     """{kernel name: (launches, device ms)} from a profiler's CUDA events."""
     from torch.autograd import DeviceType
     per_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            ms = e.time_range.elapsed_us() / 1e3
-            n, t = per_name.get(e.name, (0, 0.0))
-            per_name[e.name] = (n + 1, t + ms)
+    for e in trace_events(prof):
+        if e.device_type() == DeviceType.CUDA:
+            n, t = per_name.get(e.name(), (0, 0.0))
+            per_name[e.name()] = (n + 1, t + e.duration_ns() / 1e6)
     return per_name
+
+
+def node_device_ms(prof, nodes):
+    """{node: device ms} of the kernels launched inside each autograd node
+    whose name holds ``node`` (its ``device_time_total`` in
+    ``key_averages``): a kernel belongs to the CPU op that launched it (its
+    ``linked_correlation_id``), and an op to a node when it starts inside
+    the node's time range on the node's thread."""
+    from bisect import bisect_right
+    from torch.autograd import DeviceType
+    kernel_ns, ops = {}, []
+    ranges = {node: {} for node in nodes}
+    for e in trace_events(prof):
+        if e.device_type() == DeviceType.CUDA:
+            cid = e.linked_correlation_id()
+            kernel_ns[cid] = kernel_ns.get(cid, 0) + e.duration_ns()
+        elif (e.device_type() == DeviceType.CPU and not e.is_async()
+              and e.linked_correlation_id() == 0):    # an op, not a launch
+            thread = e.start_thread_id()
+            ops.append((e.correlation_id(), thread, e.start_ns()))
+            for node in nodes:
+                if node in e.name():
+                    ranges[node].setdefault(thread, []).append(
+                        (e.start_ns(), e.end_ns()))
+    out = {}
+    for node, by_thread in ranges.items():
+        merged = {}
+        for thread, spans in by_thread.items():
+            m = []
+            for lo, hi in sorted(spans):      # nested spans: keep the outer
+                if m and lo <= m[-1][1]:
+                    m[-1][1] = max(m[-1][1], hi)
+                else:
+                    m.append([lo, hi])
+            merged[thread] = ([lo for lo, _ in m], m)
+        ns = 0
+        for cid, thread, start in ops:
+            if cid in kernel_ns and thread in merged:
+                starts, m = merged[thread]
+                i = bisect_right(starts, start) - 1
+                if i >= 0 and start <= m[i][1]:
+                    ns += kernel_ns[cid]
+        out[node] = ns / 1e6
+    return out
+
+
+def trace_readers_phase(gen):
+    """``device_ms_by_name`` and ``node_device_ms`` read the profiler's
+    private Kineto events and redo ``key_averages``' attribution; hold them
+    against the public ``key_averages`` on one short profiled window, so
+    that a torch whose events or attribution differ fails here and not in
+    the training profiles' shares: ``MhaFunction``'s forward through the
+    kernel and its PyTorch backward (B 1, S 1024, H 8, D 64, bf16, causal).
+    Device kernels: the same count and total; the backward node: the same
+    device time. Each event may differ by 1 us (a torch that rounds its
+    events' times to whole microseconds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    node = "MhaFunctionBackward"
+    q, k, v = (torch.randn((1, 1024, 8, 64), generator=gen, device="cuda")
+               .bfloat16().requires_grad_() for _ in range(3))
+    mha(q, k, v, causal=True, impl="cuda").float().square().sum().backward()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mha(q, k, v, causal=True,
+            impl="cuda").float().square().sum().backward()
+        sync()
+    per_name = device_ms_by_name(prof)
+    n = sum(c for c, _ in per_name.values())
+    busy = sum(t for _, t in per_name.values())
+    node_ms = node_device_ms(prof, [node])[node]
+    avg = prof.key_averages()
+    want_n = sum(e.count for e in avg if e.device_type == DeviceType.CUDA)
+    want_busy = sum(e.device_time_total for e in avg
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    want_node = max(e.device_time_total for e in avg if node in e.key) / 1e3
+    row = {"kernels": n, "key_averages_kernels": want_n, "busy_ms": busy,
+           "key_averages_busy_ms": want_busy, "node_ms": node_ms,
+           "key_averages_node_ms": want_node}
+    print("trace_readers " + json.dumps(row))
+    assert n == want_n > 0, row
+    assert abs(busy - want_busy) <= n * 1e-3, row
+    assert 0 < node_ms < busy and abs(node_ms - want_node) <= n * 1e-3, row
 
 
 def profile_admit(cfg, engine, rng, n_req=4, length=512, match="attn_fwd",
@@ -1985,11 +2305,11 @@ def check_grad(name, got, want, tol=GRAD_TOL):
     return err / scale
 
 
-def attn_train_bound(B, S, H, D, window):
+def attn_train_bound(B, S, H, D, window, causal=True):
     """Forward: 4 D FLOP per attended (q, k) pair and head; backward: 10 D
     (recomputed scores, dP, dQ, dK, dV), 2.5x the forward. Both bound by
     the operations at training shapes."""
-    fwd = 4 * D * attn_pairs(S, S, True, window) * B * H
+    fwd = 4 * D * attn_pairs(S, S, causal, window) * B * H
     return fwd, 2.5 * fwd
 
 
@@ -2261,6 +2581,8 @@ def train_phase(cfg, kernels, cut, steps=6, microbatches=2, batch=4,
     full_layers = cfg.n_layers
     cfg = dataclasses.replace(cfg, **cut)
     n_layers = cfg.n_layers
+    enc = (f" and {cfg.n_enc_layers} encoder layers" if cfg.is_encdec
+           else "")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = M.init_params(cfg, generator=gen, device="cuda",
                            dtype=torch.float32)
@@ -2272,22 +2594,25 @@ def train_phase(cfg, kernels, cut, steps=6, microbatches=2, batch=4,
     shape = ShapeConfig("train_4k", seq, batch, "train")
     data = SyntheticTokens(cfg, shape, DataConfig(seed=SEED)).batch_at(0)
     tokens = batch * seq
-    print(f"train {cfg.name}: {n_layers} of {full_layers} layers "
+    print(f"train {cfg.name}: {n_layers} of {full_layers} layers{enc} "
           f"(pattern {cfg.layer_pattern}), {n_params / 1e9:.3f} "
           f"B parameters ({n_matmul / 1e9:.3f} B active outside the "
           f"embedding, {16 * n_params / 1e9:.1f} GB at 16 bytes each), "
           f"fp32 masters, batch {batch} x {seq} as {microbatches} "
           f"microbatches, {tokens} tokens a step")
-    got = {}
+    got, grads_s = {}, {}
     for impl in ("cuda", "torch"):
+        t0 = time.monotonic()
         loss, _, grads = compute_grads(cfg, params, data, remat=True,
                                        microbatches=microbatches, impl=impl)
         got[impl] = (float(loss), float(global_norm(grads)))
         del grads
         free_card()
+        grads_s[impl] = time.monotonic() - t0
     (lc, nc), (lt, nt) = got["cuda"], got["torch"]
     print(f"train {cfg.name}: before any update, loss {lc!r} (kernel) vs "
-          f"{lt!r} (plain), grad norm {nc!r} vs {nt!r}")
+          f"{lt!r} (plain), grad norm {nc!r} vs {nt!r} (their gradients in "
+          f"{grads_s['cuda']:.1f} s and {grads_s['torch']:.1f} s)")
     why = ("bf16 attention and scan outputs differ by about an ulp "
            "between the two forwards; the loss is a mean over "
            f"{tokens} tokens and the norm runs over {n_params / 1e9:.2f} B "
@@ -2322,9 +2647,13 @@ def train_phase(cfg, kernels, cut, steps=6, microbatches=2, batch=4,
     layers = {kind: cfg.n_blocks * cfg.layer_pattern.count(kind)
               for kind in "glmr"}
     attn_layers = layers["g"] + layers["l"]
+    # bidirectional calls: the encoder's self-attention and the decoder's
+    # cross-attention to it (the frames are as long as the tokens)
+    bidir = (cfg.n_enc_layers + attn_layers) if cfg.is_encdec else 0
     calls = microbatches * 2       # a layer's forward and remat recompute
     groups = len(group_bounds(seq, 16))
-    want = {"flash_attention": attn_layers * calls, "flash_decode": 0,
+    want = {"flash_attention": (attn_layers + bidir) * calls,
+            "flash_decode": 0,
             "rwkv6_scan": layers["r"] * calls * groups,
             "mamba_scan": layers["m"] * calls * groups, "grouped_gemm": 0}
     print(f"train {cfg.name}: losses {losses}, grad norm "
@@ -2334,10 +2663,15 @@ def train_phase(cfg, kernels, cut, steps=6, microbatches=2, batch=4,
     ms = float(np.median(step_ms[1:]))
     attn_fwd, attn_bwd = attn_train_bound(batch // microbatches, seq,
                                           cfg.n_heads, cfg.head_dim, 0)
+    bi_fwd, bi_bwd = attn_train_bound(batch // microbatches, seq,
+                                      cfg.n_heads, cfg.head_dim, 0,
+                                      causal=False)
     flops = (6 * n_matmul * tokens      # the scans' fp32 work: < 0.1% of it
-             + (attn_fwd + attn_bwd) * attn_layers * microbatches)
+             + (attn_fwd + attn_bwd) * attn_layers * microbatches
+             + (bi_fwd + bi_bwd) * bidir * microbatches)
     peak_s = flops / PEAK_FLOPS["bfloat16"]
-    row = {"model": cfg.name, "layers": n_layers, "params": n_params,
+    row = {"model": cfg.name, "layers": n_layers,
+           "enc_layers": cfg.n_enc_layers, "params": n_params,
            "tokens_per_step": tokens, "step_ms": step_ms,
            "step_ms_median": ms, "tokens_per_s": tokens / (ms / 1e3),
            "model_tflop_per_step": flops / 1e12,
@@ -2358,29 +2692,26 @@ def train_phase(cfg, kernels, cut, steps=6, microbatches=2, batch=4,
         float(metrics["loss"])
         sync()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        t_trace = time.monotonic()     # the profiler's stop and our reading
     per_name = device_ms_by_name(prof)
     busy = sum(t for _, t in per_name.values())
     assert busy > 0, "the profiler recorded no device time"
-    averages = prof.key_averages()
-
-    def node_ms(node):
-        return max((getattr(e, "device_time_total", 0.0) / 1e3
-                    for e in averages if node in e.key), default=0.0)
-
+    parts = (("attention", "attn_fwd", "MhaFunctionBackward"),
+             ("rwkv6_scan", "rwkv6_", "Rwkv6ScanFunctionBackward"),
+             ("mamba_scan", "mamba_", "MambaScanFunctionBackward"))
+    node_ms = node_device_ms(prof, [node for _, _, node in parts])
     prof_row = {"model": cfg.name, "wall_ms": wall_ms, "busy_ms": busy,
                 "busy_share": busy / wall_ms}
-    for label, kernel_match, node in (
-            ("attention", "attn_fwd", "MhaFunctionBackward"),
-            ("rwkv6_scan", "rwkv6_", "Rwkv6ScanFunctionBackward"),
-            ("mamba_scan", "mamba_", "MambaScanFunctionBackward")):
+    for label, kernel_match, node in parts:
         kernel_ms = sum(t for name, (_, t) in per_name.items()
                         if kernel_match in name)
-        bwd_ms = node_ms(node)
+        bwd_ms = node_ms[node]
         if kernel_ms or bwd_ms:
             prof_row.update({f"{label}_fwd_kernel_ms": kernel_ms,
                              f"{label}_fwd_kernel_share": kernel_ms / busy,
                              f"{label}_bwd_torch_ms": bwd_ms,
                              f"{label}_bwd_torch_share": bwd_ms / busy})
+    prof_row["trace_reading_s"] = time.monotonic() - t_trace
     print("train_profile " + json.dumps(prof_row))
     for name, (n, t) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:8]:
         print(f"train_profile:   {t:9.3f} ms {100 * t / busy:5.1f}%  {n:6d} "
@@ -2447,6 +2778,15 @@ def _leaves(tree):
         yield tree
 
 
+def _flat_items(tree, prefix=""):
+    """(path, leaf) pairs of a tree of dicts, paths as "/a/b"."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flat_items(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
 def ptxas_entries(log):
     """[(entry function, its register and spill lines)] from the output of
     ``nvcc -Xptxas -v``."""
@@ -2491,6 +2831,10 @@ def main() -> int:
     rows = [prefill_phase(gen), decode_phase(gen), rwkv6_phase(gen),
             mamba_phase(gen)]
     free_card()
+    t0 = time.monotonic()
+    rows[0]["encdec_shapes"] = encdec_attention_phase()
+    print(f"encdec_attention: phase {time.monotonic() - t0:.1f} s")
+    free_card()
     gg_row, gg_path = grouped_gemm_phase(gen, kernels)
     rows.append(gg_row)
     for row in rows:
@@ -2499,8 +2843,11 @@ def main() -> int:
 
     qwen2, rwkv6 = get_config("qwen2-7b"), get_config("rwkv6-7b")
     jamba_full = get_config("jamba-v0.1-52b")
+    seamless = get_config("seamless-m4t-large-v2")
+    internvl = get_config("internvl2-2b")
     train_kernel_phase(torch.Generator(device="cuda").manual_seed(SEED + 7))
     free_card()
+    trace_readers_phase(torch.Generator(device="cuda").manual_seed(SEED + 10))
     train_scan_phase(torch.Generator(device="cuda").manual_seed(SEED + 8))
     free_card()
     train_paths = {
@@ -2512,17 +2859,20 @@ def main() -> int:
         "jamba-v0.1-52b train (pattern mm, train_4k)": train_phase(
             jamba_full, kernels, dict(n_layers=2, layer_pattern="mm"),
             steps=3, microbatches=4),
+        # the first models trained at full depth: 2.04 B and 1.90 B
+        # parameters, 32.6 and 30.4 GB at 16 bytes each
+        "seamless-m4t-large-v2 train (24 + 24 layers, train_4k)":
+            train_phase(seamless, kernels, {}, steps=3),
+        "internvl2-2b train (24 layers, train_4k)": train_phase(
+            internvl, kernels, {}, steps=3),
         "train_tenant 100m": train_tenant_phase(kernels)}
     free_card()
 
     jamba = dataclasses.replace(jamba_full, n_layers=8)
-    bf16_ulps = ("bf16 attention and scan outputs may differ by an ulp "
-                 "between the two paths; through the layers that moves "
-                 "logits of std ~1 by a few bf16 ulps")
-    parity_phase(qwen2, 2, 0.1, bf16_ulps)
-    parity_phase(rwkv6, 2, 0.1, bf16_ulps)
+    parity_phase(qwen2, 2, 0.1, BF16_ULPS)
+    parity_phase(rwkv6, 2, 0.1, BF16_ULPS)
     parity_phase(jamba, 8, 0.25,
-                 bf16_ulps + "; an ulp can also flip a near-tie of the "
+                 BF16_ULPS + "; an ulp can also flip a near-tie of the "
                  "top-2 router for one token, which moves that token by "
                  "one expert's output")
     parity_phase(jamba, 8, 2e-3,
@@ -2545,6 +2895,11 @@ def main() -> int:
                  "the plain versions sum in other orders (~1e-6 relative), "
                  "logits of scale 30", compute_dtype=torch.float32)
     window_phase(gemma2, 3.0, capped)
+    free_card()
+    t0 = time.monotonic()
+    encdec_parity_phase(seamless, internvl)
+    print(f"parity encoder-decoder and frontends: phase "
+          f"{time.monotonic() - t0:.1f} s")
     free_card()
 
     by_path = {"grouped_gemm op, dropless MoE experts at "
@@ -2577,6 +2932,22 @@ def main() -> int:
         profile_scan=(ms_kernel.KERNEL, per_step_entry(
             ms_kernel.KERNEL, "mamba_scan_per_step_fwd"), "mamba_"))[0]
     free_card()
+    t0 = time.monotonic()
+    by_path["seamless-m4t-large-v2"], (params, engine) = serving_phase(
+        seamless, kernels, n_req=24, max_new=32)
+    del engine
+    free_card()
+    print(f"serving seamless-m4t-large-v2: phase "
+          f"{time.monotonic() - t0:.1f} s")
+    by_path["seamless-m4t-large-v2 speech path"] = speech_phase(
+        seamless, kernels, params)
+    del params
+    free_card()
+    t0 = time.monotonic()
+    by_path["internvl2-2b"] = serving_phase(internvl, kernels, n_req=24,
+                                            max_new=32)[0]
+    free_card()
+    print(f"serving internvl2-2b: phase {time.monotonic() - t0:.1f} s")
     launches = {k.name: sum(p[k.name] for p in by_path.values())
                 for k in kernels}
     print("launches_by_path " + json.dumps(by_path))

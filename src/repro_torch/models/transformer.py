@@ -1,13 +1,17 @@
 """Decoder LM (twin of ``repro.models.transformer``) for the layer kinds
 "g" (global attention), "l" (local sliding-window attention), "m" (Mamba)
-and "r" (RWKV6), with dense GLU or MoE feed-forward layers.
+and "r" (RWKV6), with dense GLU or MoE feed-forward layers, plus the
+encoder-decoder stack (seamless: a bidirectional encoder over
+``speech_stub`` frames, cross-attention in every decoder "g"/"l"
+sub-layer) and the ``vit_stub`` patches of the VLM.
 
 A model is a tiled stack of blocks, each instantiating
 ``cfg.layer_pattern`` (e.g. "mmmmgmmm" for jamba, "r" for rwkv6).
 Parameters keep the reference's tree: blocks are stacked on a leading
-``n_blocks`` axis and sub-layers are named ``sub{i}``; the forward pass
-loops over blocks in Python where the reference scans. Encoder-decoder and
-frontend models are not ported yet and raise ``NotImplementedError``.
+``n_blocks`` axis (encoder blocks on ``n_enc_layers``) and sub-layers are
+named ``sub{i}``; the forward pass loops over blocks in Python where the
+reference scans. The frontends are stubs, as in the reference: precomputed
+frame or patch embeddings enter through ``frontend_proj``.
 
 A parameter is stored in the compute dtype only where the reference casts
 it to the compute dtype at every use (``Param.compute``), and in fp32
@@ -16,8 +20,16 @@ recurrent states included, is updated in place.
 
 Training: ``forward(remat=True)`` recomputes each block in the backward
 pass (``torch.utils.checkpoint``, the reference's ``nothing_saveable`` scan
-body), and ``loss_fn`` is the reference's next-token loss through
-``layers.chunked_softmax_xent``.
+body), each encoder block is recomputed whether or not ``remat`` is set
+(the reference's ``jax.checkpoint`` of the encoder body), and ``loss_fn``
+is the reference's next-token loss through ``layers.chunked_softmax_xent``.
+
+The cross K/V of an encoder-decoder cache are preallocated with the cache
+(``init_cache(enc_len=...)``) and filled in place by a prefill with
+frames, so a frame count other than the cache's ``enc_len`` raises where
+the reference returns a cross cache of the frames' length; so does a
+cross-attention against a cache of ``enc_len`` 0 (the reference divides
+by zero there).
 """
 from __future__ import annotations
 
@@ -27,7 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
-from .attention import attn_apply
+from .attention import attn_apply, init_cross_kv_cache
 from .config import ModelConfig
 from .layers import (Param, chunked_softmax_xent, dense_spec, embed, glu,
                      glu_spec, rms_norm, truncated_normal_)
@@ -39,17 +51,11 @@ KINDS = ("g", "l", "m", "r")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what this port does not cover."""
+    """Raise ``NotImplementedError`` for layer kinds the port lacks."""
     kinds = sorted(set(cfg.layer_pattern) - set(KINDS))
     if kinds:
         raise NotImplementedError(f"{cfg.name}: layer kinds {kinds} are not "
                                   "ported yet")
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder is not "
-                                  "ported yet")
-    if cfg.frontend:
-        raise NotImplementedError(f"{cfg.name}: frontend {cfg.frontend!r} "
-                                  "is not ported yet")
 
 
 def _moe_static(cfg: ModelConfig, i: int) -> bool:
@@ -63,9 +69,19 @@ def _moe_static(cfg: ModelConfig, i: int) -> bool:
 
 # ---------------------------------------------------------------- init
 
-def _block_spec(cfg: ModelConfig) -> Dict[str, Any]:
-    """One block's tree (``repro.models.transformer.init_block``)."""
+def _attn_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """``repro.models.attention.init_attn``'s tree (self or cross)."""
     d, hd = cfg.d_model, cfg.head_dim
+    return {"wq": dense_spec(d, cfg.n_heads * hd, bias=cfg.qkv_bias),
+            "wk": dense_spec(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias),
+            "wv": dense_spec(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias),
+            "wo": dense_spec(cfg.n_heads * hd, d,
+                             stddev=(cfg.n_heads * hd) ** -0.5)}
+
+
+def _block_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """One decoder block's tree (``repro.models.transformer.init_block``)."""
+    d = cfg.d_model
 
     def norm():
         return Param((d,), value=0.0 if cfg.zero_centered_norm else 1.0)
@@ -74,13 +90,10 @@ def _block_spec(cfg: ModelConfig) -> Dict[str, Any]:
     for i, kind in enumerate(cfg.layer_pattern):
         sub: Dict[str, Any] = {"ln1": norm()}
         if kind in ("g", "l"):
-            sub["attn"] = {
-                "wq": dense_spec(d, cfg.n_heads * hd, bias=cfg.qkv_bias),
-                "wk": dense_spec(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias),
-                "wv": dense_spec(d, cfg.n_kv_heads * hd, bias=cfg.qkv_bias),
-                "wo": dense_spec(cfg.n_heads * hd, d,
-                                 stddev=(cfg.n_heads * hd) ** -0.5),
-            }
+            sub["attn"] = _attn_spec(cfg)
+            if cfg.is_encdec:
+                sub["ln_cross"] = norm()
+                sub["cross"] = _attn_spec(cfg)
         elif kind == "m":
             sub["mamba"] = init_mamba_block(cfg)
         else:
@@ -98,7 +111,8 @@ def _block_spec(cfg: ModelConfig) -> Dict[str, Any]:
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     """The parameter tree of ``repro.models.transformer.init_params`` as
-    :class:`Param` specs (block leaves without their leading n_blocks axis)."""
+    :class:`Param` specs (block leaves without their leading n_blocks or
+    n_enc_layers axis)."""
     check_supported(cfg)
     d = cfg.d_model
     spec: Dict[str, Any] = {
@@ -109,6 +123,14 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = dense_spec(d, cfg.padded_vocab)
+    if cfg.is_encdec:   # _init_enc_block: norms of ones whatever zc says
+        spec["enc_blocks"] = {"ln1": Param((d,), value=1.0),
+                              "attn": _attn_spec(cfg),
+                              "ln2": Param((d,), value=1.0),
+                              "ffn": glu_spec(d, cfg.d_ff)}
+        spec["enc_final_norm"] = Param((d,), value=1.0)
+    if cfg.frontend:
+        spec["frontend_proj"] = dense_spec(cfg.frontend_dim, d)
     return spec
 
 
@@ -121,15 +143,16 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
     ``generator`` must live on ``device``."""
     spec = param_specs(cfg)
     device = resolve_device(device)
+    stacks = {"blocks": cfg.n_blocks, "enc_blocks": cfg.n_enc_layers}
 
     def make(p: Any, path: Tuple[str, ...]) -> Any:
         if isinstance(p, dict):
             return {k: make(v, path + (k,)) for k, v in p.items()}
-        stacked = path[0] == "blocks"
-        shape = ((cfg.n_blocks,) if stacked else ()) + p.shape
+        n = stacks.get(path[0], 0)          # the leading stacked axis, if any
+        shape = ((n,) if n else ()) + p.shape
         t = torch.empty(shape, dtype=p.dtype(dtype), device=device)
         if p.stddev > 0:
-            for part in (t if stacked else [t]):   # per block: bounded temp
+            for part in (t if n else [t]):   # per block: bounded temp
                 truncated_normal_(part, p.stddev, generator)
         elif p.fill is not None:
             t.copy_(p.fill())
@@ -143,13 +166,15 @@ def init_params(cfg: ModelConfig, *, generator: torch.Generator,
 # ---------------------------------------------------------------- cache
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               dtype: torch.dtype = torch.bfloat16,
+               enc_len: int = 0, dtype: torch.dtype = torch.bfloat16,
                device: DeviceLike = None) -> Dict[str, Any]:
     """Stacked decode cache, one entry per sub-layer, each leaf
     [n_blocks, batch, ...]: attention "k"/"v" [max_len, n_kv_heads,
-    head_dim] in ``dtype``; Mamba "conv" [d_conv-1, d_inner] and "ssm"
-    [d_inner, d_state], RWKV "shift_tm"/"shift_cm" [1, d_model] and "wkv"
-    [heads, head_size, head_size], all fp32 whatever ``dtype`` is."""
+    head_dim] in ``dtype``, and for an encoder-decoder "cross_k"/"cross_v"
+    [enc_len, n_kv_heads, head_dim] in ``dtype``; Mamba "conv"
+    [d_conv-1, d_inner] and "ssm" [d_inner, d_state], RWKV
+    "shift_tm"/"shift_cm" [1, d_model] and "wkv" [heads, head_size,
+    head_size], all fp32 whatever ``dtype`` is."""
     check_supported(cfg)
     device = resolve_device(device)
 
@@ -161,8 +186,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     for i, kind in enumerate(cfg.layer_pattern):
         if kind in ("g", "l"):
             kv = (max_len, cfg.n_kv_heads, cfg.head_dim)
-            cache[f"sub{i}"] = {"k": zeros(*kv, dt=dtype),
-                                "v": zeros(*kv, dt=dtype)}
+            sub = {"k": zeros(*kv, dt=dtype), "v": zeros(*kv, dt=dtype)}
+            if cfg.is_encdec:
+                ckv = (enc_len, cfg.n_kv_heads, cfg.head_dim)
+                sub["cross_k"] = zeros(*ckv, dt=dtype)
+                sub["cross_v"] = zeros(*ckv, dt=dtype)
+            cache[f"sub{i}"] = sub
         elif kind == "m":
             di = cfg.mamba_d_inner
             cache[f"sub{i}"] = {"conv": zeros(cfg.mamba_d_conv - 1, di),
@@ -182,6 +211,8 @@ def cache_axes(cfg: ModelConfig) -> Dict[str, Any]:
         if kind in ("g", "l"):
             kv = ("layers", "batch", "cache_seq", "kv_heads", None)
             axes[f"sub{i}"] = {"k": kv, "v": kv}
+            if cfg.is_encdec:
+                axes[f"sub{i}"].update(cross_k=kv, cross_v=kv)
         elif kind == "m":
             axes[f"sub{i}"] = {"conv": ("layers", "batch", None, "inner"),
                                "ssm": ("layers", "batch", "inner", None)}
@@ -213,23 +244,65 @@ def _unbind(tree: Any, n: int) -> list:
     return list(tree.unbind(0))
 
 
+def _encode(params, frames: torch.Tensor, cfg: ModelConfig, impl,
+            compute_dtype) -> torch.Tensor:
+    """Audio encoder: frames [B, S, frontend_dim] -> [B, S, D], through
+    ``frontend_proj``, bidirectional blocks with RoPE over the frame
+    positions and ``enc_final_norm`` (no zero-centring). Under grad mode
+    each block keeps only its input and runs again in the backward pass,
+    whatever ``remat`` says (the reference checkpoints its encoder body)."""
+    x = frames.to(compute_dtype) @ params["frontend_proj"]["w"].to(
+        compute_dtype)
+    positions = torch.arange(frames.shape[1], device=x.device)
+    eps = cfg.norm_eps
+
+    def body(h, p):
+        out, _ = attn_apply(p["attn"], rms_norm(h, p["ln1"], eps), cfg=cfg,
+                            causal=False, positions=positions, impl=impl,
+                            compute_dtype=compute_dtype)
+        h = h + out
+        return h + glu(rms_norm(h, p["ln2"], eps), p["ffn"], cfg.act,
+                       compute_dtype)
+
+    for p in _unbind(params["enc_blocks"], cfg.n_enc_layers):
+        x = (checkpoint(body, x, p, use_reentrant=False)
+             if torch.is_grad_enabled() else body(x, p))
+    return rms_norm(x, params["enc_final_norm"], eps)
+
+
 def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, cache=None,
-            lengths: Optional[torch.Tensor] = None, remat: bool = False,
+            lengths: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None, remat: bool = False,
             impl: Optional[str] = None,
             compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Any]:
     """Run the decoder stack. Returns (hidden [B,S,D], the cache|None);
     the cache's tensors are updated in place. With ``remat`` each block
-    keeps only its input for the backward pass and runs again there."""
+    keeps only its input for the backward pass and runs again there.
+    ``patches`` [B, P, frontend_dim] (``vit_stub``) replace the first P
+    positions' embeddings as the reference concatenates them, so with
+    fewer than P tokens the hidden state has P rows. ``frames`` [B, F,
+    frontend_dim] (encoder-decoder) go through the encoder, and every
+    cross-attention attends to its output and fills the cache's cross
+    K/V, which must hold F rows; without frames, a decoder with a cache
+    attends to the cross K/V that the cache holds."""
     check_supported(cfg)
     x = embed(tokens, params["embed"], scale_by_dim=cfg.embed_scale,
               compute_dtype=compute_dtype)
+    if cfg.frontend == "vit_stub" and patches is not None:
+        pe = patches.to(compute_dtype) @ params["frontend_proj"]["w"].to(
+            compute_dtype)
+        x = torch.cat([pe, x[:, patches.shape[1]:]], dim=1)
+    enc_out = None
+    if cfg.is_encdec and frames is not None:
+        enc_out = _encode(params, frames, cfg, impl, compute_dtype)
     S = x.shape[1]
     if positions is None:
         positions = (torch.arange(S, device=x.device)
                      if lengths is None or S > 1 else (lengths - 1)[:, None])
-    kw = dict(cfg=cfg, positions=positions, lengths=lengths, impl=impl,
-              compute_dtype=compute_dtype)
+    kw = dict(cfg=cfg, positions=positions, lengths=lengths, enc_out=enc_out,
+              impl=impl, compute_dtype=compute_dtype)
     blocks = _unbind(params["blocks"], cfg.n_blocks)
     for blk in range(cfg.n_blocks):
         c = None if cache is None else _block(cache, blk)
@@ -243,8 +316,35 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
     return x, cache
 
 
+def _cross(sub, h: torch.Tensor, c, enc_out, cfg: ModelConfig,
+           kw) -> torch.Tensor:
+    """A decoder sub-layer's cross-attention: against ``enc_out``, whose
+    K/V also fill the cache's cross K/V where there is a cache; with a
+    cache and no ``enc_out``, against the cross K/V the cache holds. With
+    neither, the reference's ``attn_apply(kv_x=None)`` runs a causal
+    self-attention through the cross weights, and so does the port."""
+    if c is None:
+        return attn_apply(sub["cross"], h, cfg=cfg, kv_x=enc_out, **kw)[0]
+    if enc_out is None:
+        kv = {"k": c["cross_k"], "v": c["cross_v"]}
+    else:
+        if enc_out.shape[1] != c["cross_k"].shape[1]:
+            raise ValueError(
+                f"{cfg.name}: {enc_out.shape[1]} frames into a cache of "
+                f"enc_len {c['cross_k'].shape[1]}: the cross K/V are filled "
+                "in place, so enc_len must be the frame count")
+        # attend to the fresh K/V in the compute dtype, as the reference
+        # does, and keep them in the cache's dtype
+        kv = init_cross_kv_cache(sub["cross"], enc_out, cfg,
+                                 kw["compute_dtype"])
+        c["cross_k"].copy_(kv["k"])
+        c["cross_v"].copy_(kv["v"])
+    return attn_apply(sub["cross"], h, cfg=cfg, kv_x=h, cache=kv, **kw)[0]
+
+
 def _block_body(x: torch.Tensor, p_block, c_block, *, cfg: ModelConfig,
-                positions, lengths, impl, compute_dtype) -> torch.Tensor:
+                positions, lengths, enc_out, impl,
+                compute_dtype) -> torch.Tensor:
     """One block: every sub-layer of ``cfg.layer_pattern`` in turn."""
     zc, eps = cfg.zero_centered_norm, cfg.norm_eps
     kw = dict(impl=impl, compute_dtype=compute_dtype)
@@ -259,6 +359,9 @@ def _block_body(x: torch.Tensor, p_block, c_block, *, cfg: ModelConfig,
             if cfg.post_norms:
                 out = rms_norm(out, sub["post_ln1"], eps, zc)
             x = x + out
+            if cfg.is_encdec:
+                h = rms_norm(x, sub["ln_cross"], eps, zc)
+                x = x + _cross(sub, h, c, enc_out, cfg, kw)
         elif kind == "m":
             out, conv, ssm = mamba_apply(
                 sub["mamba"], h, cfg,
@@ -314,12 +417,13 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
             compute_dtype=torch.bfloat16
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy, chunked ([B, S, V] never held). ``batch``:
-    "tokens" [B, S] and an optional "mask" [B, S], tensors on the
-    parameters' device. The labels are the tokens shifted left by one with
-    a 0 at the end, whose position the mask drops. Returns (loss,
-    {"loss_sum", "weight"})."""
+    "tokens" [B, S], an optional "mask" [B, S] and the frontends' optional
+    "frames" or "patches", tensors on the parameters' device. The labels
+    are the tokens shifted left by one with a 0 at the end, whose position
+    the mask drops. Returns (loss, {"loss_sum", "weight"})."""
     tokens = batch["tokens"]
-    h, _ = forward(params, cfg, tokens=tokens, remat=remat, impl=impl,
+    h, _ = forward(params, cfg, tokens=tokens, frames=batch.get("frames"),
+                   patches=batch.get("patches"), remat=remat, impl=impl,
                    compute_dtype=compute_dtype)
     labels = torch.nn.functional.pad(tokens[:, 1:], (0, 1))
     mask = batch.get("mask")
@@ -339,13 +443,16 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
 
 def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache, *,
             lengths: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None,
             impl: Optional[str] = None, compute_dtype=torch.bfloat16):
     """Fill the cache with S tokens; return (last-token logits, cache,
     lengths). ``lengths`` ([B] int32, optional) marks per-row true prompt
     lengths of right-padded rows: logits are gathered at each row's last
-    valid position."""
+    valid position. ``frames`` and ``patches`` as in ``forward``."""
     B, S = tokens.shape
-    h, cache = forward(params, cfg, tokens=tokens, cache=cache, impl=impl,
+    h, cache = forward(params, cfg, tokens=tokens, cache=cache, frames=frames,
+                       patches=patches, impl=impl,
                        compute_dtype=compute_dtype)
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=h.device)

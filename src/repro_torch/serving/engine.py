@@ -154,7 +154,11 @@ class GenerationEngine:
         self.slots = slots
         self.max_len = max_len
         self.compute_dtype = compute_dtype
-        self.cache = init_cache(cfg, slots, max_len, device=self.device)
+        # an encoder-decoder's cross K/V hold max_len rows, zeros until a
+        # prefill with frames fills them (the engine passes none, as the
+        # reference's): the decoder's cross-attention then adds exactly 0
+        self.cache = init_cache(cfg, slots, max_len, enc_len=max_len,
+                                device=self.device)
         i32 = dict(dtype=torch.int32, device=self.device)
         # device-resident slot state, updated by every fused call
         self._slot_lengths = torch.zeros((slots,), **i32)
@@ -211,7 +215,7 @@ class GenerationEngine:
         slots in place. Returns the first generated token per row."""
         cfg = self.cfg
         row_cache = init_cache(cfg, prompts.shape[0], self.max_len,
-                               device=self.device)
+                               enc_len=self.max_len, device=self.device)
         logits, row_cache, _ = prefill(self.params, cfg, prompts, row_cache,
                                        lengths=true_len,
                                        compute_dtype=self.compute_dtype)

@@ -8,11 +8,13 @@ optimizer state are updated in place (the returned trees are the given
 ones). Batches may be numpy: the step moves them to the parameters'
 device.
 
-Every layer kind trains: attention ("g", "l") through ``MhaFunction``, the
-recurrent layers ("m", "r") through the scans' ``MambaScanFunction`` and
-``Rwkv6ScanFunction``. Single device only: a mesh and the cross-pod int8
-gradient compression are multi-GPU (ROADMAP §1), and encoder-decoder and
-frontend models are not ported. Each raises ``NotImplementedError``.
+Every model of the registry trains: attention ("g", "l"; the encoder's
+and the cross-attention too) through ``MhaFunction``, the recurrent layers
+("m", "r") through the scans' ``MambaScanFunction`` and
+``Rwkv6ScanFunction``; a batch's "frames" or "patches" reach ``loss_fn``
+and are split into microbatches with its tokens. Single device only: a
+mesh and the cross-pod int8 gradient compression are multi-GPU (ROADMAP
+§1) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -27,16 +29,6 @@ from ..models.config import ModelConfig
 from ..models.transformer import check_supported
 from .optimizer import (OptimizerConfig, adamw_update, init_opt_state,
                         tree_leaves, tree_map)
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port cannot train yet:
-    encoder-decoder and frontend models. Every layer kind that the port
-    serves (``models.transformer.KINDS``) trains."""
-    if cfg.is_encdec or cfg.frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and frontend models are not ported "
-            "yet (ROADMAP §1 item 2)")
-    check_supported(cfg)
 
 
 def _device_batch(batch: Dict[str, Any], device: torch.device
@@ -61,7 +53,7 @@ def compute_grads(cfg: ModelConfig, params: Any, batch: Dict[str, Any], *,
     ``microbatches`` > 1 the batch is split along its first axis, the
     gradients are summed in fp32 and divided by ``microbatches``, and loss
     = loss_sum / max(weight, 1) over all of them."""
-    check_trainable(cfg)
+    check_supported(cfg)
     device = tree_leaves(params)[0].device
     batch = _device_batch(batch, device)
     work = tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -104,7 +96,7 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
         raise NotImplementedError(
             "a mesh and cross-pod gradient compression are multi-GPU, not "
             "ported yet (ROADMAP §1 item 5)")
-    check_trainable(cfg)
+    check_supported(cfg)
 
     def train_step(params, opt_state, batch):
         loss, aux, grads = compute_grads(cfg, params, batch, remat=remat,
@@ -131,10 +123,8 @@ def make_opt_state(params: Any, *, grad_compress_pod: bool = False
 def make_prefill_step(cfg: ModelConfig, *, impl: Optional[str] = None
                       ) -> Callable:
     def prefill_step(params, tokens, cache, frames=None, patches=None):
-        if frames is not None or patches is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: frontends are not ported yet (ROADMAP §1)")
-        return model_prefill(params, cfg, tokens, cache, impl=impl)
+        return model_prefill(params, cfg, tokens, cache, frames=frames,
+                             patches=patches, impl=impl)
     return prefill_step
 
 

@@ -1,7 +1,8 @@
 """Admission as CUDA graphs (the other half of the reference's
 ``_compiled``), and the process's one capture lock.
 
-On the CPU, for each attention-only served arch (reduced, 2 layers,
+On the CPU, for each attention-only served arch (reduced, 2 layers; the
+encoder-decoder's slot cache holds zero cross K/V of max_len rows;
 weights from the JAX package through ``params_from_jax``, fp32; gemma2's
 window cut to 8 positions so that it binds at these lengths):
 - the staged admit body ``_admit_staged``, which reads one flat static
@@ -54,7 +55,7 @@ from repro_torch.serving import engine as engine_mod
 F32 = torch.float32
 MAX_LEN = 40
 ATTN = ["qwen2-7b", "gemma2-9b", "yi-9b", "qwen2.5-14b", "olmoe-1b-7b",
-        "qwen3-moe-30b-a3b"]
+        "qwen3-moe-30b-a3b", "internvl2-2b", "seamless-m4t-large-v2"]
 RECURRENT = ["rwkv6-7b", "jamba-v0.1-52b"]
 STATE = ("_slot_lengths", "_budget", "_active", "_last")
 # two rounds of four requests on four slots; the same lengths and budgets
@@ -461,11 +462,13 @@ def test_graphed_admission_matches_eager_admission(cuda, arch):
     """Two graphed engines on one set of bf16 weights, one of them with its
     graph admission cleared (both keep the graphed step), two rounds each:
     identical greedy tokens and launch counts, one attention launch per
-    attention layer per admit call and per step; the graphed engine
+    attention layer per admit call and per step (and for the
+    encoder-decoder one cross-attention launch more); the graphed engine
     captures each shape of the first round once and replays every call of
     the second."""
     cfg, params = _card_model(arch, cuda)
     attn = _attn_layers(cfg)
+    cross = attn if cfg.is_encdec else 0     # one more a call and a step
     rounds = [_round(cfg.vocab, seed=20 + r) for r in range(2)]
     got = {}
     for graph_admit in (True, False):
@@ -478,7 +481,8 @@ def test_graphed_admission_matches_eager_admission(cuda, arch):
             replays = eng._admit_replays
             tokens, launches, (admits, steps) = _counted_round(
                 eng, prompts, 10 * r)
-            assert launches == (attn * admits, attn * steps)
+            assert launches == (attn * admits + cross * (admits + steps),
+                                attn * steps)
             assert eng._admit_replays - replays == (
                 admits if graph_admit and r == 1 else 0)
             got[graph_admit].append((tokens, launches))

@@ -43,7 +43,8 @@ from repro_torch.serving import GenerationEngine, Request
 
 F32 = torch.float32
 MAX_LEN = 40
-SERVED = ["qwen2-7b", "rwkv6-7b", "jamba-v0.1-52b"]
+SERVED = ["qwen2-7b", "rwkv6-7b", "jamba-v0.1-52b", "internvl2-2b"]
+ENCDEC = "seamless-m4t-large-v2"
 # the published expert counts and top-k at reduced widths
 MOE = {"olmoe-1b-7b": {}, "qwen3-moe-30b-a3b": {},
        "jamba-v0.1-52b": {"n_layers": 8}}
@@ -353,6 +354,47 @@ def test_graphed_step_tokens_and_launches_match_eager(cuda, arch):
         assert rs_kernel.KERNEL.launches == layers["r"] * eng.admit_calls
         assert ms_kernel.KERNEL.launches == layers["m"] * eng.admit_calls
         assert eng.host_syncs == eng.admit_calls + eng.steps
+    assert tokens[True] == tokens[False]
+    assert [len(t) for t in tokens[True]] == max_new
+
+
+@pytest.mark.cuda
+def test_encdec_graphed_engine_matches_eager(cuda):
+    """Reduced seamless served as the reference serves it (no frames: its
+    decoder cross-attends to a zero cross cache of max_len rows), by a
+    graphed engine (step and admission graphs) and its eager twin on one
+    set of bf16 weights, each driven twice (the graphed engine's second
+    drive replays its admission graphs): identical greedy tokens. The step
+    graph records one cross-attention (``flash_attention``, a one-row
+    query against the cross cache) and one decode attention per layer;
+    over a drive, ``flash_attention`` runs twice a layer per admit call
+    (causal self-attention, cross-attention) and once a layer per step."""
+    cfg, params, prompts, max_new = _card_model(ENCDEC, cuda)
+    attn = _layers(cfg)["g"]
+    tokens = {}
+    for graphed in (True, False):
+        eng = GenerationEngine(cfg, params, slots=3, max_len=MAX_LEN,
+                               device=cuda, cuda_graph=graphed)
+        assert eng._graph_admit == graphed
+        if graphed:
+            assert eng._graph_launches == {fd_kernel.KERNEL: attn,
+                                           fa_kernel.KERNEL: attn}
+        before = _static_buffers(eng)
+        runs = []
+        for _ in range(2):
+            for k in KERNELS:
+                k.launches = 0
+            calls, steps = eng.admit_calls, eng.steps
+            runs.append(_drive(eng, lambda i, p, n: Request(i, p, n),
+                               prompts, max_new))
+            torch.cuda.synchronize()
+            calls, steps = eng.admit_calls - calls, eng.steps - steps
+            assert fd_kernel.KERNEL.launches == attn * steps
+            assert fa_kernel.KERNEL.launches == attn * (2 * calls + steps)
+        assert _static_buffers(eng) == before
+        assert runs[0] == runs[1]
+        assert (eng._admit_replays > 0) == graphed
+        tokens[graphed] = runs[0]
     assert tokens[True] == tokens[False]
     assert [len(t) for t in tokens[True]] == max_new
 

@@ -1,7 +1,8 @@
-"""The PyTorch port stands alone: no file of ``src/repro_torch`` nor
-``chip_smoke.py`` imports JAX or the JAX package, importing the port loads
-no JAX, and its entry points refuse to run quietly on the CPU when no card
-is present and the caller did not ask for the CPU."""
+"""The PyTorch port stands alone: no file of ``src/repro_torch``, of the
+port's examples and tools, nor ``chip_smoke.py`` imports JAX or the JAX
+package, importing the port loads no JAX, and its entry points refuse to
+run quietly on the CPU when no card is present and the caller did not ask
+for the CPU."""
 import ast
 import os
 import subprocess
@@ -14,6 +15,7 @@ import torch
 
 from repro_torch.configs import get_config, reduced
 from repro_torch.models import init_params
+from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.train import main as train_main
 from repro_torch.serving import GenerationEngine, generate
 from repro_torch.training import (OptimizerConfig, make_opt_state,
@@ -22,6 +24,7 @@ from repro_torch.training import (OptimizerConfig, make_opt_state,
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((REPO / "src" / "repro_torch").rglob("*.py"))
               + sorted((REPO / "examples").glob("*_torch.py"))
+              + sorted((REPO / "tools").glob("*_torch.py"))
               + [REPO / "chip_smoke.py"])
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -55,10 +58,11 @@ def test_port_files_exist():
     for module in ("rwkv6", "mamba", "moe"):
         assert f"src/repro_torch/models/{module}.py" in names
     for module in ("training/optimizer", "training/step", "data/pipeline",
-                   "ckpt/checkpoint", "launch/train"):
+                   "ckpt/checkpoint", "launch/train", "launch/serve"):
         assert f"src/repro_torch/{module}.py" in names
     assert "examples/serve_multitenant_torch.py" in names
     assert "examples/train_tenant_job_torch.py" in names
+    assert "tools/planted_faults_torch.py" in names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -79,7 +83,7 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.models.moe\n"
             "import repro_torch.core, repro_torch.serving.host\n"
             "import repro_torch.training, repro_torch.data, repro_torch.ckpt\n"
-            "import repro_torch.launch.train\n"
+            "import repro_torch.launch.train, repro_torch.launch.serve\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -109,11 +113,15 @@ def test_entry_points_default_to_the_card(no_cuda):
                  max_len=16)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_main(["--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_main(["--reduced", "--requests", "1"])
     # asking for the CPU works
     eng = GenerationEngine(cfg, params, device="cpu", max_len=16)
     assert eng.cache["sub0"]["k"].device.type == "cpu"
     assert train_main(["--reduced", "--steps", "1", "--batch", "2",
                        "--seq", "8", "--device", "cpu"]) == 0
+    assert serve_main(["--reduced", "--requests", "2", "--max-new", "2",
+                       "--max-len", "32", "--device", "cpu"]) == 0
     # the train step runs where the parameters are: CPU parameters train
     # on the CPU, and nothing moves to the card
     step = make_train_step(cfg, OptimizerConfig())

@@ -29,6 +29,11 @@ ATTN_CASES = [
     (1, 64, 64, 2, 1, 128, False, 0, 0.0),       # bidirectional (encoder)
     (1, 70, 150, 2, 1, 32, True, 0, 0.0),        # ragged S, q_offset 80
     (1, 160, 160, 2, 2, 16, True, 24, 0.0),      # window masks whole tiles
+    # non-causal, as the encoder-decoder runs it (seamless: H = KV, D 64)
+    (2, 40, 200, 4, 2, 64, False, 0, 0.0),       # cross-attention, S < T
+    (1, 150, 70, 4, 4, 32, False, 0, 0.0),       # S > T
+    (2, 1, 1024, 4, 4, 64, False, 0, 0.0),       # one-row decode cross query
+    (1, 96, 96, 16, 16, 64, False, 0, 0.0),      # encoder heads, G = 1
 ]
 DECODE_CASES = [
     # B, L, H, KV, D, window, softcap  (tests/test_kernels.py:97)
@@ -206,6 +211,10 @@ CUDA_ATTN_CASES = ATTN_CASES + [
     (1, 200, 200, 4, 2, 256, True, 40, 50.0),     # the same at D 256
     (2, 600, 600, 4, 1, 128, True, 100, 0.0),     # whole kv tiles masked for some rows
     (3, 130, 130, 8, 2, 64, True, 0, 0.0),        # 3 batch rows: no fill across a row's edge
+    # seamless's non-causal shapes: encoder, speech-path cross, decode cross
+    (2, 1000, 1000, 16, 16, 64, False, 0, 0.0),   # ragged last kv tile
+    (8, 16, 1000, 16, 16, 64, False, 0, 0.0),
+    (8, 1, 1000, 16, 16, 64, False, 0, 0.0),
 ]
 CUDA_DECODE_CASES = DECODE_CASES + [
     (4, 1000, 28, 4, 128, 0, 0.0),                # qwen2-7b heads, G = 7

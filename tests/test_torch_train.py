@@ -191,6 +191,7 @@ VJP_CASES = [
     (1, 64, 64, 2, 2, 32, True, 0, 50.0, 0, 24, 40),      # softcap
     (2, 40, 100, 4, 2, 16, True, 16, 30.0, 60, 16, 32),   # q_offset + window
     (1, 48, 48, 2, 1, 32, False, 0, 0.0, 0, 32, 32),      # bidirectional
+    (2, 24, 60, 4, 4, 64, False, 0, 0.0, 0, 16, 32),      # cross, S < T
 ]
 VJP_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -500,13 +501,6 @@ def test_train_loss_decreases_tiny_model():
     assert losses[-1] < losses[0] - 0.5, losses
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "internvl2-2b"])
-def test_untrainable_configs_raise(arch):
-    cfg = tconfigs.reduced(tconfigs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="item 2"):
-        make_train_step(cfg, OptimizerConfig())
-
-
 def test_mesh_and_grad_compression_raise():
     cfg = tconfigs.reduced(tconfigs.get_config("qwen2-7b"))
     for kw in ({"mesh": object()}, {"grad_compress_pod": True}):
@@ -578,7 +572,7 @@ def test_kernel_lse_of_an_empty_key_range(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", VJP_CASES[:4])
+@pytest.mark.parametrize("case", VJP_CASES)
 def test_mha_function_grads_through_the_kernel(cuda, case, dtype):
     """dq/dk/dv with the kernel's forward ("cuda") against the same
     backward on the plain forward ("torch"): only the forward's out and
