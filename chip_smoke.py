@@ -39,6 +39,14 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    product against the plain version, a skewed case with empty groups, and
    olmoe's capacity buffer against ``_moe_local``'s own einsum. Each
    decode and grouped GEMM row names the kernel the call took;
+3b. the kernels in their sharded roles (``sharded_kernel_phase``): the
+   decode kernel's partials entry (``flash_decode_partials``) on 4 and 16
+   slices of a B 8, L 1024 cache at each slice's global offset, at
+   qwen2-7b's and gemma2-9b's heads, bf16 and fp32, combined as the ranks
+   combine them and held against ``flash_decode`` on the whole cache and
+   against the plain partials; ``flash_attention`` on 16 q slices of
+   qwen2-7b's S 4096 at their ``q_offset`` against one unsharded call
+   (``sharded_decode {...}``, ``sharded_context {...}``);
 4. training, on attention-only layers: the prefill kernel's forward with
    its log-sum-exp against ``_mha_torch``'s (out, lse) at qwen2-7b's
    train_4k (B 2, S 4096), at gemma2-9b's heads (B 1, S 5000, D 256,
@@ -147,6 +155,15 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    request and retire 2 replicas, every unit reaching ``Ready``; each
    fleet run's launches must be the sum over its replicas. Lines
    ``fleet qwen2-7b ...`` and ``fleet_ab {...}`` (``fleet_phase``).
+
+9. multi-GPU, after the last model is freed: qwen2-7b at full width cut
+   to 2 layers through the sharded code paths on an NCCL mesh of every
+   visible GPU, in processes of their own (``sharded_step_phase``): one
+   train step against the port's single-device step, a prefill under the
+   prefill plan and 8 decode steps under the decode plan against the
+   single-device ones, the kernels' launches in those runs an entry of
+   ``launches_by_path`` (``sharded_step {...}``); then
+   ``examples/elastic_failover_torch.py`` on the card (``failover ...``).
 
 Every device-wide sync here takes the port's ``CAPTURE_LOCK``, since
 engines capture on other threads. The line before the last is ``{"kernels": [...]}``; the last line is
@@ -2799,6 +2816,320 @@ def ptxas_entries(log):
     return entries
 
 
+# ------------------------------------------------------------ multi-GPU
+
+SHARDED_HEADS = (("qwen2-7b heads", 28, 4, 128, 0, 0.0),
+                 ("gemma2-9b heads", 16, 8, 256, 4096, 50.0),
+                 # a window that binds and spans slices
+                 ("gemma2-9b heads", 16, 8, 256, 300, 50.0))
+
+
+def combine_partials(parts, shape):
+    """The cross-rank combine of ``_decode_mha_seq_sharded`` in one
+    process: the slices' (acc, m, l), max-rescaled and summed, divided."""
+    m_g = torch.stack([p[1] for p in parts]).amax(0)
+    corr = [torch.exp(p[1] - m_g) for p in parts]
+    l_g = sum(p[2] * c for p, c in zip(parts, corr))
+    acc_g = sum(p[0] * c[..., None] for p, c in zip(parts, corr))
+    return (acc_g / (l_g[..., None] + 1e-30)).reshape(shape)
+
+
+def sharded_kernel_phase(gen):
+    """The kernels in their sharded roles, each rank's slice in one
+    process. Decode: ``flash_decode_partials`` on 4 and 16 slices of a B 8,
+    L 1024 cache (ragged lengths, 1 and L among them, so that some slices
+    hold no valid row) at each slice's global offset, at qwen2-7b's heads
+    and gemma2-9b's (D 256, softcap 50; window 4096, and 300 where it binds
+    across slices), bf16 and fp32: the
+    slices combined as the ranks combine them, held against
+    ``flash_decode`` on the whole cache and against the plain partials
+    (``_decode_partials(pos_offset=...)``) combined alike (2e-2 bf16, 2e-5
+    fp32); the n slices' calls timed together against the bound of the
+    same function, beside the whole-cache call (lines ``sharded_decode
+    {...}``). Context attention: qwen2-7b's 28 heads, B 1, S 4096 cut into
+    16 q slices of 256, each through ``flash_attention`` at its
+    ``q_offset`` against the whole K/V, held against one unsharded call
+    and against the plain version (2e-2), timed (``sharded_context
+    {...}``). No launch here counts toward a path."""
+    from repro_torch.kernels.flash_attention.ops import _decode_partials
+    B, L = 8, 1024
+    rows = []
+    for label, H, KV, D, window, softcap in SHARDED_HEADS:
+        kc = torch.randn((B, L, KV, D), generator=gen, device="cuda")
+        vc = torch.randn((B, L, KV, D), generator=gen, device="cuda")
+        q32 = torch.randn((B, 1, H, D), generator=gen, device="cuda")
+        lengths = torch.randint(2, L, (B,), generator=gen, device="cuda",
+                                dtype=torch.int32)
+        lengths[0], lengths[1] = 1, L
+        kw = dict(window=window, softcap=softcap)
+        for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 2e-5)):
+            q, k, v = (t.to(dtype) for t in (q32, kc, vc))
+            whole = decode_mha(q, k, v, lengths, impl="cuda", **kw)
+            for n in (4, 16):
+                Ll = L // n
+                ks = [k[:, i * Ll:(i + 1) * Ll].contiguous() for i in range(n)]
+                vs = [v[:, i * Ll:(i + 1) * Ll].contiguous() for i in range(n)]
+
+                def kernel_parts():
+                    return [fd_kernel.flash_decode_partials(
+                        q, ks[i], vs[i], lengths, pos_offset=i * Ll, **kw)
+                        for i in range(n)]
+
+                def plain_parts():
+                    return [_decode_partials(
+                        q, ks[i], vs[i], lengths, pos_offset=i * Ll,
+                        scale=None, kv_chunk=2048, **kw) for i in range(n)]
+                got = combine_partials(kernel_parts(), q.shape).to(dtype)
+                plain = combine_partials(plain_parts(), q.shape).to(dtype)
+                sync()
+                assert torch.isfinite(got.float()).all()
+                err_whole, err_plain = max_err(got, whole), max_err(got, plain)
+                name = (f"flash_decode_partials {label} {n} slices "
+                        f"{str(dtype).split('.')[-1]}")
+                check(name + " vs whole cache", err_whole, tol)
+                check(name + " vs plain", err_plain, tol)
+                ms = graph_ms(kernel_parts, iters=10)
+                whole_ms = graph_ms(lambda: decode_mha(
+                    q, k, v, lengths, impl="cuda", **kw), iters=10)
+                plain_ms = time_ms(plain_parts, iters=3, warmup=1)
+                b_ms, b_by = decode_bound(lengths, B, H, KV, D, window)
+                row = {"shape": f"{label} B{B} L{L} ({n} slices of {Ll}) "
+                                f"H{H} KV{KV} D{D} "
+                                f"{str(dtype).split('.')[-1]}, window "
+                                f"{window}, softcap {softcap}",
+                       "kernel": fd_kernel.variant(q, k),
+                       "max_abs_err": max(err_whole, err_plain),
+                       "err_vs_whole": err_whole, "err_vs_plain": err_plain,
+                       "tolerance": tol, "ms": ms, "whole_cache_ms": whole_ms,
+                       "plain_ms": plain_ms, "bound_ms": b_ms,
+                       "bound_by": b_by}
+                print("sharded_decode " + json.dumps(row))
+                rows.append(row)
+        del kc, vc, q32
+    B, S, H, KV, D, n = 1, 4096, 28, 4, 128, 16
+    q, k, v = (torch.randn(shape, generator=gen, device="cuda").bfloat16()
+               for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D)))
+    Sl = S // n
+    qs = [q[:, i * Sl:(i + 1) * Sl].contiguous() for i in range(n)]
+
+    def sliced(impl):
+        return torch.cat([mha(qs[i], k, v, causal=True, q_offset=i * Sl,
+                              impl=impl) for i in range(n)], dim=1)
+    whole = mha(q, k, v, causal=True, impl="cuda")
+    got, plain = sliced("cuda"), sliced("torch")
+    sync()
+    err_whole, err_plain = max_err(got, whole), max_err(got, plain)
+    check("flash_attention context slices vs whole", err_whole, 2e-2)
+    check("flash_attention context slices vs plain", err_plain, 2e-2)
+    b_ms, b_by = attn_bound(B, S, S, H, KV, D, True, 0)
+    row = {"shape": f"qwen2-7b heads B{B} S{S} ({n} q slices of {Sl}, "
+                    f"q_offset i*{Sl}) H{H} KV{KV} D{D} bf16 causal",
+           "max_abs_err": max(err_whole, err_plain),
+           "err_vs_whole": err_whole, "err_vs_plain": err_plain,
+           "tolerance": 2e-2, "ms": graph_ms(lambda: sliced("cuda"), iters=5),
+           "whole_ms": graph_ms(lambda: mha(q, k, v, causal=True,
+                                            impl="cuda"), iters=5),
+           "plain_ms": time_ms(lambda: sliced("torch"), iters=1, warmup=0),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print("sharded_context " + json.dumps(row))
+    rows.append(row)
+    return rows
+
+
+def sharded_step_rank(rank, n, device="cuda", cfg=None):
+    """One rank of ``sharded_step_phase`` (a process of its own, GPU
+    ``rank``, an NCCL group of ``n``): qwen2-7b at full width cut to 2
+    layers on a (1, n) ("data", "model") mesh. One train step (B 2, S 1024,
+    fp32 masters, the plan's tp_heads layout with FSDP) and the port's
+    single-device step on the same seeded weights and batch; a prefill of
+    4 ragged prompts under the prefill plan and 8 decode steps under the
+    decode plan (cache sequence-sharded, the decode kernel's partials
+    entry), bf16 weights, against the single-device prefill and decode.
+    Times (host clock, synced, eager): the first train step each way and
+    the decode steps' medians each way. Returns the readings and each
+    kernel's launches in the sharded runs.
+    ``device`` and ``cfg`` let a CPU rehearsal run the same code small."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.sharding.api import use_rules
+    from repro_torch.sharding.planner import plan_for
+    from repro_torch.training import (OptimizerConfig, make_decode_step,
+                                      make_opt_state, make_prefill_step,
+                                      make_train_step)
+    from repro_torch.training.optimizer import opt_state_axes
+    cfg = cfg or dataclasses.replace(get_config("qwen2-7b"), n_layers=2)
+    mesh = make_test_mesh((1, n), ("data", "model"), device=device)
+    kernels = (fa_kernel.KERNEL, fd_kernel.KERNEL)
+    out = {"gpus": n, "launches": {k.name: 0 for k in kernels}}
+
+    def weights(dtype):
+        gen = torch.Generator(device=device).manual_seed(SEED + 20)
+        return M.init_params(cfg, generator=gen, device=device, dtype=dtype)
+
+    def synced():
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return time.monotonic()
+
+    def counted(fn):
+        for k in kernels:
+            k.launches = 0
+        res = fn()
+        synced()
+        for k in kernels:
+            out["launches"][k.name] += k.launches
+        return res
+
+    def probe(p):
+        w = p["blocks"]["sub0"]["attn"]["wq"]["w"]
+        w = w.full_tensor() if hasattr(w, "full_tensor") else w
+        return w[0].float().cpu()
+
+    B, S = 2, 1024
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device=device, dtype=torch.int32)
+    batch = {"tokens": tokens, "mask": torch.ones(B, S, device=device)}
+    t0 = time.monotonic()
+    params = weights(torch.float32)
+    opt = make_opt_state(params)
+    t1 = synced()
+    _, _, m1 = make_train_step(cfg, OptimizerConfig())(params, opt, batch)
+    single_ms = (synced() - t1) * 1e3
+    want = (float(m1["loss"]), float(m1["grad_norm"]), probe(params))
+    del params, opt, m1
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    plan = plan_for(cfg, ShapeConfig("t", S, B, "train"), mesh)
+    params = weights(torch.float32)
+    p = plan.distribute(params, M.param_axes(cfg))
+    del params
+    o = plan.distribute(make_opt_state(p), opt_state_axes(M.param_axes(cfg)))
+    with use_rules(plan.rules):
+        step = make_train_step(cfg, OptimizerConfig(), mesh=mesh)
+        t1 = synced()
+        p, o, m2 = counted(lambda: step(p, o, batch))
+        sharded_ms = (synced() - t1) * 1e3
+    got = (float(m2["loss"].full_tensor()), float(m2["grad_norm"].full_tensor()),
+           probe(p))
+    out["train"] = {"loss": got[0], "loss_single": want[0],
+                    "grad_norm": got[1], "grad_norm_single": want[1],
+                    "param_err": float((got[2] - want[2]).abs().max()),
+                    "plan": plan.strategy, "first_step_ms": sharded_ms,
+                    "first_step_ms_single": single_ms,
+                    "s": time.monotonic() - t0}
+    del p, o, m2
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    t0 = time.monotonic()
+    Bs, L, steps = 4, 512, 8
+    lens = torch.tensor([300, 17, 256, 129], dtype=torch.int32, device=device)
+    prompt = torch.randint(0, cfg.vocab, (Bs, 300), generator=gen,
+                           device=device, dtype=torch.int32)
+    params = weights(torch.bfloat16)
+    cache = M.init_cache(cfg, Bs, L, device=device)
+    seq, feed = [], []
+    logits, cache, lengths = M.prefill(params, cfg, prompt, cache,
+                                       lengths=lens)
+    seq.append(logits)
+    lengths = lengths + 1
+    single_ms = []
+    for _ in range(steps):      # greedy, the sharded run replays the tokens
+        nxt = logits[:, -1:, :cfg.vocab].argmax(-1).to(torch.int32)
+        feed.append(nxt)
+        t1 = synced()
+        logits, cache, lengths = M.decode_step(params, cfg, nxt, cache,
+                                               lengths)
+        single_ms.append((synced() - t1) * 1e3)
+        seq.append(logits)
+    want = torch.stack(seq)[..., :cfg.vocab].float()
+    del cache
+    sharded = []
+    pf = plan_for(cfg, ShapeConfig("p", 300, Bs, "prefill"), mesh)
+    dc = plan_for(cfg, ShapeConfig("d", L, Bs, "decode"), mesh)
+    cache = pf.distribute(M.init_cache(cfg, Bs, L, device=device),
+                          M.cache_axes(cfg))
+    with use_rules(pf.rules):
+        logits, cache, lengths = counted(lambda: make_prefill_step(cfg)(
+            pf.distribute(params, M.param_axes(cfg)), prompt, cache,
+            lengths=lens))
+    sharded.append(logits.full_tensor())
+    lengths = lens + 1
+    p = dc.distribute(params, M.param_axes(cfg))
+    cache = dc.distribute(cache, M.cache_axes(cfg))
+    sharded_ms = []
+    with use_rules(dc.rules):
+        step = make_decode_step(cfg)
+        for nxt in feed:
+            t1 = synced()
+            logits, cache, lengths = counted(lambda: step(p, nxt, cache,
+                                                          lengths))
+            sharded_ms.append((synced() - t1) * 1e3)
+            sharded.append(logits.full_tensor())
+    got = torch.stack(sharded)[..., :cfg.vocab].float()
+    out["serve"] = {"max_abs_err": float((got - want).abs().max()),
+                    "logit_std": float(want.std()),
+                    "argmax_agreement": float((got.argmax(-1)
+                                               == want.argmax(-1)).float()
+                                              .mean()),
+                    "plans": [pf.strategy, dc.strategy],
+                    "decode_step_ms_median": float(np.median(sharded_ms)),
+                    "decode_step_ms_median_single": float(
+                        np.median(single_ms)),
+                    "s": time.monotonic() - t0}
+    return out
+
+
+def sharded_step_phase():
+    """qwen2-7b through the sharded code paths on an NCCL mesh of every
+    visible GPU (``sharded_step_rank``, in processes of their own, started
+    after the earlier phases freed the card; this process joins no process
+    group, so nothing touches the engines' captures). The train step is
+    held to the port's single-device step (loss 5e-3 and parameters 5e-2,
+    the reference's sharded-exec bounds; grad norm 2e-2 relative), the
+    served logits to the single-device prefill and decode (0.1: bf16
+    ulps through 2 layers, as the parity phase's). Prints ``sharded_step
+    {...}`` and returns the sharded runs' launches."""
+    from repro_torch.launch.spmd import spawn
+    n = torch.cuda.device_count()
+    print(f"sharded_step: NCCL mesh (1, {n}) of {n} visible GPU(s)")
+    t0 = time.monotonic()
+    res = spawn(sharded_step_rank, n, device="cuda")[0]
+    res["s"] = time.monotonic() - t0
+    print("sharded_step " + json.dumps(res))
+    tr, sv = res["train"], res["serve"]
+    check("sharded train loss vs single device",
+          abs(tr["loss"] - tr["loss_single"]), 5e-3)
+    check("sharded train params vs single device", tr["param_err"], 5e-2)
+    check("sharded train grad norm vs single device (relative)",
+          abs(tr["grad_norm"] / tr["grad_norm_single"] - 1), 2e-2)
+    check("sharded serve logits vs single device", sv["max_abs_err"], 0.1)
+    for name in ("flash_attention", "flash_decode"):
+        if not res["launches"][name] > 0:
+            raise AssertionError(f"sharded step: no {name} launch")
+    return res["launches"]
+
+
+def failover_phase():
+    """``examples/elastic_failover_torch.py`` on the card: a node fails, the
+    next unit is rescheduled and resumes from the port's checkpoint."""
+    import importlib.util
+    path = Path(__file__).resolve().parent / "examples" / \
+        "elastic_failover_torch.py"
+    spec = importlib.util.spec_from_file_location("failover", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.monotonic()
+    res = mod.run("cuda", log=lambda m: print("failover " + m, flush=True))
+    node, result = res["u1"]
+    if node == res["u0"] or result["resumed_from"] != 5:
+        raise AssertionError(f"failover: {res}")
+    print(f"failover: phase {time.monotonic() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -2830,6 +3161,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = [prefill_phase(gen), decode_phase(gen), rwkv6_phase(gen),
             mamba_phase(gen)]
+    free_card()
+    t0 = time.monotonic()
+    rows[1]["sharded_shapes"] = sharded_kernel_phase(
+        torch.Generator(device="cuda").manual_seed(SEED + 11))
+    print(f"sharded_kernel: phase {time.monotonic() - t0:.1f} s")
     free_card()
     t0 = time.monotonic()
     rows[0]["encdec_shapes"] = encdec_attention_phase()
@@ -2948,6 +3284,12 @@ def main() -> int:
                                             max_new=32)[0]
     free_card()
     print(f"serving internvl2-2b: phase {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    sharded = sharded_step_phase()
+    by_path["qwen2-7b sharded (2 layers)"] = {
+        k.name: sharded.get(k.name, 0) for k in kernels}
+    print(f"sharded_step: phase {time.monotonic() - t0:.1f} s")
+    failover_phase()
     launches = {k.name: sum(p[k.name] for p in by_path.values())
                 for k in kernels}
     print("launches_by_path " + json.dumps(by_path))

@@ -25,6 +25,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .ref import mha_ref
 
@@ -250,7 +251,19 @@ def decode_mha(q: torch.Tensor, k_cache: torch.Tensor,
 
     q: [B, 1, H, D]; caches: [B, L, KV, D]; lengths: [B] (#valid entries,
     i.e. the new token's position + 1). Returns [B, 1, H, D].
+
+    When sharding rules bind "cache_seq" to a mesh axis and the cache is a
+    DTensor, the cache is sequence-sharded and the attention runs as a
+    flash-decode across ranks (``_decode_mha_seq_sharded``).
     """
+    from ...sharding.api import active_rules
+    rules = active_rules()
+    seq_axis = rules.bindings.get("cache_seq") if rules is not None else None
+    if isinstance(seq_axis, str) and isinstance(k_cache, DTensor):
+        return _decode_mha_seq_sharded(
+            q, k_cache, v_cache, lengths, rules=rules, seq_axis=seq_axis,
+            window=window, softcap=softcap, scale=scale, kv_chunk=kv_chunk,
+            impl=impl)
     impl = impl or _auto_impl(q)
     if impl == "ref":
         return decode_mha_ref(q, k_cache, v_cache, lengths, window=window,
@@ -270,10 +283,12 @@ def decode_mha(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def _decode_partials(q, k_cache, v_cache, lengths, *, window, softcap,
-                     scale, kv_chunk):
-    """Online-softmax partials over the cache, the decode kernel's plain
-    version. Returns (acc [B,KV,G,D], m [B,KV,G], l [B,KV,G]),
-    unnormalized."""
+                     scale, kv_chunk, pos_offset: int = 0):
+    """Online-softmax partials over (a slice of) the cache, the decode
+    kernel's plain version. ``pos_offset``: global position of
+    k_cache[:, 0]; masks and the window use global positions. Returns
+    (acc [B,KV,G,D], m [B,KV,G], l [B,KV,G]), unnormalized; a slice with
+    no valid row gives acc 0, m -1e30, l 0."""
     B, _, H, D = q.shape
     L, KV = k_cache.shape[1], k_cache.shape[2]
     G = H // KV
@@ -286,7 +301,8 @@ def _decode_partials(q, k_cache, v_cache, lengths, *, window, softcap,
     l = torch.zeros((B, KV, G), dtype=torch.float32, device=dev)
     for k0 in range(0, L, kv_chunk):
         ki, vi = k_cache[:, k0:k0 + kv_chunk], v_cache[:, k0:k0 + kv_chunk]
-        kpos = torch.arange(k0, k0 + ki.shape[1], device=dev)[None, :]
+        kpos = torch.arange(k0, k0 + ki.shape[1], device=dev)[None, :] \
+            + pos_offset
         s = torch.einsum("bngd,btnd->bngt", qf, ki.float()) * scale
         if softcap > 0.0:
             s = torch.tanh(s / softcap) * softcap
@@ -303,6 +319,47 @@ def _decode_partials(q, k_cache, v_cache, lengths, *, window, softcap,
             "bngt,btnd->bngd", p.to(vi.dtype).float(), vi.float())
         m = m_new
     return acc, m, l
+
+
+def _decode_mha_seq_sharded(q, k_cache, v_cache, lengths, *, rules,
+                            seq_axis, window, softcap, scale, kv_chunk,
+                            impl):
+    """Flash-decode over a cache sequence-sharded on ``seq_axis``
+    (``repro.kernels.flash_attention.ops._decode_mha_seq_sharded``): each
+    rank computes the unnormalised partials of its slice at its global
+    offset (the decode kernel's partials entry on the card, never
+    ``_decode_partials``; the plain version on the CPU), and the partials
+    combine with a max-rescaled sum over the axis. A rank whose slice
+    holds no valid row adds weight 0. q and lengths are laid out by the
+    batch binding only, the caches by batch and ``seq_axis``."""
+    from ...sharding import collectives as col
+    mesh = k_cache.device_mesh
+    B, _, H, D = q.shape
+    b = rules.bound("batch")
+    rows = col.layout(mesh, {b: 0})
+    cache_pl = col.layout(mesh, {b: 0, seq_axis: 1})
+    off = col.global_offset(k_cache, cache_pl)[1]
+
+    def body(qi, kc, vc, lens):
+        qi, kc, vc = qi.contiguous(), kc.contiguous(), vc.contiguous()
+        if (impl or _auto_impl(qi)) == "cuda":
+            from ..flash_decode.kernel import flash_decode_partials
+            acc, m, l = flash_decode_partials(
+                qi, kc, vc, lens, pos_offset=off, window=window,
+                softcap=softcap, scale=scale)
+        else:
+            acc, m, l = _decode_partials(
+                qi, kc, vc, lens, window=window, softcap=softcap,
+                scale=scale, kv_chunk=kv_chunk, pos_offset=off)
+        m_g = col.all_reduce(m, "max", mesh, seq_axis)
+        corr = torch.exp(m - m_g)
+        l_g = col.all_reduce(l * corr, "sum", mesh, seq_axis)
+        acc_g = col.all_reduce(acc * corr[..., None], "sum", mesh, seq_axis)
+        out = acc_g / (l_g[..., None] + 1e-30)
+        return out.reshape(qi.shape[0], 1, H, D).to(qi.dtype)
+
+    return col.local_call(body, mesh, (q, k_cache, v_cache, lengths),
+                          (rows, cache_pl, cache_pl, rows), rows)
 
 
 def decode_mha_ref(q, k_cache, v_cache, lengths, *, window: int = 0,

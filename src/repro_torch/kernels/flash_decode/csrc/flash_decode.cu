@@ -21,7 +21,12 @@
 // call from L, B and KV so that the blocks fill the 132 SMs (kernel.py). A
 // second, small kernel combines the chunks' partial (acc, m, l) with the
 // max-rescaled sum of flash_attention/ops.py:384-388, over the chunks that
-// hold valid positions only. The cache is read in its own dtype, so no step
+// hold valid positions only. `flash_decode_partials` runs the same partial
+// kernels on one slice of a sequence-sharded cache whose first row is
+// global position `pos_offset` (masks and window at global positions) and
+// merges its chunks into the slice's unnormalised (acc, m, l) instead; the
+// ranks combine those (flash_attention/ops.py:_decode_mha_seq_sharded,
+// replacing the reference's shard_map body at its ops.py:367-397). The cache is read in its own dtype, so no step
 // copies or casts the whole cache.
 //
 // bf16 q with a bf16 cache, head dims 16-256 (`decode_mma_kernel`; the
@@ -66,13 +71,15 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 }
 
 // The positions [start, end) of chunk sp that a row of length len attends
-// to; empty when the chunk lies outside the valid range or window.
+// to; empty when the chunk lies outside the valid range or window. The
+// cache holds L positions starting at global position off; len is first
+// clamped to lclamp (the whole cache: L, a slice of it: INT_MAX).
 __device__ __forceinline__ void chunk_range(int len, int L, int window, int split, int sp,
-                                            int& start, int& end) {
-  len = min(len, L);
+                                            int off, int lclamp, int& start, int& end) {
+  len = min(len, lclamp);
   const int lo = window > 0 ? max(0, len - window) : 0;
-  start = max(sp * split, lo);
-  end = min((sp + 1) * split, len);
+  start = max(sp * split, lo - off);
+  end = min(min((sp + 1) * split, len - off), L);
 }
 
 // -------------------------------------------------- fp32: the CUDA cores
@@ -120,10 +127,10 @@ decode_partial_kernel(const TQ* __restrict__ q, const TC* __restrict__ kc,
                       const TC* __restrict__ vc, const int* __restrict__ lengths,
                       float* __restrict__ acc_out, float* __restrict__ m_out,
                       float* __restrict__ l_out, int L, int H, int KV, int D, int split,
-                      float scale, int window, float softcap) {
+                      float scale, int window, float softcap, int off, int lclamp) {
   const int sp = blockIdx.x, n = blockIdx.y, b = blockIdx.z;
   int start, end;
-  chunk_range(lengths[b], L, window, split, sp, start, end);
+  chunk_range(lengths[b], L, window, split, sp, off, lclamp, start, end);
   if (start >= end) return;         // the combine skips this chunk
 
   extern __shared__ float smem[];
@@ -234,13 +241,13 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constan
                   const __nv_bfloat16* __restrict__ q, const int* __restrict__ lengths,
                   float* __restrict__ acc_out, float* __restrict__ m_out,
                   float* __restrict__ l_out, int L, int H, int KV, int split, int nsplit,
-                  float scale, int window, float softcap) {
+                  float scale, int window, float softcap, int off, int lclamp) {
   using C = Dc<D>;
   const int sp = blockIdx.x, b = blockIdx.z;
   const int G = H / KV, MT = (G + 15) / 16;
   const int n = blockIdx.y / MT, g0 = (blockIdx.y % MT) * 16;   // kv head, first q head
   int start, end;
-  chunk_range(lengths[b], L, window, split, sp, start, end);
+  chunk_range(lengths[b], L, window, split, sp, off, lclamp, start, end);
   if (start >= end) return;         // the combine skips this chunk
   const int n_tiles = (end - start + MBK - 1) / MBK;
 
@@ -445,13 +452,46 @@ __global__ void decode_combine_kernel(const float* __restrict__ acc, const float
   out[((long long)b * H + h) * D + d] = from_f<TQ>(num / (den + 1e-30f));
 }
 
+// The chunks' partials of one slice merged into the slice's own
+// unnormalised (acc, m, l) [B, KV, G(, D)]: the combine above without the
+// division, over the chunks with valid positions at the slice's offset.
+// A slice with none gives acc 0, m NEG_INF, l 0. Grid (H, B), D threads.
+__global__ void decode_merge_kernel(const float* __restrict__ acc, const float* __restrict__ m,
+                                    const float* __restrict__ l, const int* __restrict__ lengths,
+                                    float* __restrict__ acc_out, float* __restrict__ m_out,
+                                    float* __restrict__ l_out, int L, int H, int KV, int D,
+                                    int split, int nsplit, int window, int off) {
+  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x, G = H / KV;
+  const int n = h / G, g = h - n * G;
+  const int len = lengths[b];
+  const int lo = max((window > 0 ? max(0, len - window) : 0) - off, 0);
+  const int hi = min(len - off, L);                   // local valid positions [lo, hi)
+  const int s0 = lo / split, s1 = hi > lo ? (hi - 1) / split + 1 : s0;
+  const long long base = ((long long)b * KV + n) * nsplit;
+  float M = NEG_INF;
+  for (int s = s0; s < s1; ++s) M = fmaxf(M, m[(base + s) * G + g]);
+  float num = 0.f, den = 0.f;
+  for (int s = s0; s < s1; ++s) {
+    const long long i = (base + s) * G + g;
+    const float w = expf(m[i] - M);
+    num += acc[i * D + d] * w;
+    den += l[i] * w;
+  }
+  const long long o = ((long long)b * KV + n) * G + g;
+  acc_out[o * D + d] = num;
+  if (d == 0) {
+    m_out[o] = M;
+    l_out[o] = den;
+  }
+}
+
 // ----------------------------------------------------------------- launch
 
 template <typename TQ, typename TC>
 cudaError_t launch_fp32(const void* q, const void* kc, const void* vc, const int* lengths,
                         float* acc, float* m, float* l, int B, int L, int H, int KV, int D,
                         int split, int nsplit, int window, float softcap, float scale,
-                        cudaStream_t st) {
+                        int off, int lclamp, cudaStream_t st) {
   const int G = H / KV;
   const int bytes = smem_floats(G, D) * (int)sizeof(float);
   static int configured = 48 * 1024;
@@ -463,7 +503,7 @@ cudaError_t launch_fp32(const void* q, const void* kc, const void* vc, const int
   }
   decode_partial_kernel<TQ, TC><<<dim3(nsplit, KV, B), DNT, bytes, st>>>(
       static_cast<const TQ*>(q), static_cast<const TC*>(kc), static_cast<const TC*>(vc), lengths,
-      acc, m, l, L, H, KV, D, split, scale, window, softcap);
+      acc, m, l, L, H, KV, D, split, scale, window, softcap, off, lclamp);
   return cudaGetLastError();
 }
 
@@ -481,7 +521,7 @@ int encode_cache(CUtensorMap* map, const void* ptr, int B, int L, int KV) {
 template <int D>
 int launch_mma(const void* q, const void* kc, const void* vc, const int* lengths, float* acc,
                float* m, float* l, int B, int L, int H, int KV, int split, int nsplit, int window,
-               float softcap, float scale, cudaStream_t st) {
+               float softcap, float scale, int off, int lclamp, cudaStream_t st) {
   using C = Dc<D>;
   CUtensorMap tk, tv;
   int rc = encode_cache<D>(&tk, kc, B, L, KV);
@@ -493,7 +533,7 @@ int launch_mma(const void* q, const void* kc, const void* vc, const int* lengths
   const int MT = (H / KV + 15) / 16;
   decode_mma_kernel<D><<<dim3(nsplit, KV * MT, B), 128, C::SMEM, st>>>(
       tk, tv, static_cast<const __nv_bfloat16*>(q), lengths, acc, m, l, L, H, KV, split, nsplit,
-      scale, window, softcap);
+      scale, window, softcap, off, lclamp);
   return (int)cudaGetLastError();
 }
 
@@ -514,23 +554,17 @@ bool tensor_cores(int q_dtype, int cache_dtype, int D) {
          (D == 16 || D == 32 || D == 64 || D == 128 || D == 256);
 }
 
-}  // namespace
-
-// q_dtype / cache_dtype: 0 = float32, 1 = bfloat16. acc/m/l are fp32
-// scratch of [B, KV, ceil(L/split), G(, D)] elements. Two launches: the
-// kernel `tensor_cores` names, then the combine. Returns 0, a cudaError_t
-// or ENCODE_ERROR + a CUresult; the Python wrapper raises on non-zero.
-extern "C" int flash_decode_fwd(const void* q, const void* k_cache, const void* v_cache,
-                                const int* lengths, float* acc, float* m, float* l, void* out,
-                                int B, int L, int H, int KV, int D, int q_dtype, int cache_dtype,
-                                int split, int window, float softcap, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (split <= 0 || (q_dtype | cache_dtype) & ~1) return (int)cudaErrorInvalidValue;
-  const int nsplit = (L + split - 1) / split;
+// The chunks' partial kernel `tensor_cores` names, over a cache of L
+// positions that starts at global position off (lengths clamped to lclamp).
+int launch_partials(const void* q, const void* k_cache, const void* v_cache, const int* lengths,
+                    float* acc, float* m, float* l, int B, int L, int H, int KV, int D,
+                    int q_dtype, int cache_dtype, int split, int nsplit, int window,
+                    float softcap, float scale, int off, int lclamp, cudaStream_t st) {
   int rc;
-#define FD_ARGS lengths, acc, m, l, B, L, H, KV, D, split, nsplit, window, softcap, scale, st
+#define FD_ARGS lengths, acc, m, l, B, L, H, KV, D, split, nsplit, window, softcap, scale, off, \
+                lclamp, st
 #define FD_MMA_ARGS q, k_cache, v_cache, lengths, acc, m, l, B, L, H, KV, split, nsplit, window, \
-                    softcap, scale, st
+                    softcap, scale, off, lclamp, st
   if (tensor_cores(q_dtype, cache_dtype, D)) {
     switch (D) {
       case 16: rc = launch_mma<16>(FD_MMA_ARGS); break;
@@ -548,11 +582,54 @@ extern "C" int flash_decode_fwd(const void* q, const void* k_cache, const void* 
   }
 #undef FD_ARGS
 #undef FD_MMA_ARGS
+  return rc;
+}
+
+}  // namespace
+
+// q_dtype / cache_dtype: 0 = float32, 1 = bfloat16. acc/m/l are fp32
+// scratch of [B, KV, ceil(L/split), G(, D)] elements. Two launches: the
+// kernel `tensor_cores` names, then the combine. Returns 0, a cudaError_t
+// or ENCODE_ERROR + a CUresult; the Python wrapper raises on non-zero.
+extern "C" int flash_decode_fwd(const void* q, const void* k_cache, const void* v_cache,
+                                const int* lengths, float* acc, float* m, float* l, void* out,
+                                int B, int L, int H, int KV, int D, int q_dtype, int cache_dtype,
+                                int split, int window, float softcap, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (split <= 0 || (q_dtype | cache_dtype) & ~1) return (int)cudaErrorInvalidValue;
+  const int nsplit = (L + split - 1) / split;
+  const int rc = launch_partials(q, k_cache, v_cache, lengths, acc, m, l, B, L, H, KV, D, q_dtype,
+                                 cache_dtype, split, nsplit, window, softcap, scale, 0, L, st);
   if (rc != 0) return rc;
   return q_dtype ? (int)launch_combine<__nv_bfloat16>(acc, m, l, lengths, out, B, L, H, KV, D,
                                                       split, nsplit, window, st)
                  : (int)launch_combine<float>(acc, m, l, lengths, out, B, L, H, KV, D, split,
                                               nsplit, window, st);
+}
+
+// The unnormalised partials of one slice of a sequence-sharded cache:
+// k_cache/v_cache [B, L, KV, D] hold global positions [pos_offset,
+// pos_offset + L), lengths are global. acc/m/l are the chunks' scratch as
+// in flash_decode_fwd; acc_out [B, KV, G, D], m_out/l_out [B, KV, G] fp32
+// get the slice's (acc, m, l) with masks and window at global positions.
+// Two launches: the partial kernel, then the merge.
+extern "C" int flash_decode_partials(const void* q, const void* k_cache, const void* v_cache,
+                                     const int* lengths, float* acc, float* m, float* l,
+                                     float* acc_out, float* m_out, float* l_out, int B, int L,
+                                     int H, int KV, int D, int q_dtype, int cache_dtype, int split,
+                                     int pos_offset, int window, float softcap, float scale,
+                                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (split <= 0 || pos_offset < 0 || (q_dtype | cache_dtype) & ~1)
+    return (int)cudaErrorInvalidValue;
+  const int nsplit = (L + split - 1) / split;
+  const int rc = launch_partials(q, k_cache, v_cache, lengths, acc, m, l, B, L, H, KV, D, q_dtype,
+                                 cache_dtype, split, nsplit, window, softcap, scale, pos_offset,
+                                 0x7fffffff, st);
+  if (rc != 0) return rc;
+  decode_merge_kernel<<<dim3(H, B), D, 0, st>>>(acc, m, l, lengths, acc_out, m_out, l_out, L, H,
+                                                KV, D, split, nsplit, window, pos_offset);
+  return (int)cudaGetLastError();
 }
 
 // The partial kernel flash_decode_fwd would launch: 1 the tensor-core

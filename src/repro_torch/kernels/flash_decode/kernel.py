@@ -11,7 +11,10 @@ chunk partials with ``torch.empty``, launches on the current stream and
 counts its launches in ``KERNEL.launches``. It takes CUDA tensors only: the
 plain version for the CPU is ``flash_attention.ops._decode_partials``.
 ``lengths`` stays on the device; the kernel reads each row's length itself,
-so no host sync happens here.
+so no host sync happens here. ``flash_decode_partials`` is the library's
+second entry: one slice of a sequence-sharded cache at a global position
+offset, returning the slice's unnormalised partials for the ranks to
+combine (``flash_attention.ops._decode_mha_seq_sharded``).
 The kernel has no backward: the wrapper raises when grad mode is on and
 an input needs a gradient (``_build.refuse_autograd``).
 """
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -112,6 +115,56 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
             float(scale), stream_ptr(q))
     KERNEL.check(rc)
     return out
+
+
+PARTIALS_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                 _I, _I, _I, _I, _I, _F, _F, _P]
+
+
+def flash_decode_partials(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                          pos_offset: int, window: int = 0,
+                          softcap: float = 0.0, scale: Optional[float] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The unnormalised partials of one slice of a sequence-sharded cache:
+    caches [B, L, KV, D] hold global positions [pos_offset, pos_offset +
+    L), ``lengths`` [B] int32 are global. Returns fp32 (acc [B, KV, G, D],
+    m [B, KV, G], l [B, KV, G]), masks and window at global positions; a
+    row with no valid position in the slice gets acc 0, m -1e30, l 0. The
+    plain version is ``flash_attention.ops._decode_partials(...,
+    pos_offset=...)``. One launch of the partial kernel and one of the
+    merge, counted as one."""
+    refuse_autograd("flash_decode_partials", q, k_cache, v_cache)
+    _check(q, k_cache, v_cache, lengths)
+    if pos_offset < 0:
+        raise ValueError(f"flash_decode_partials: pos_offset {pos_offset}")
+    B, _, H, D = q.shape
+    L, KV = k_cache.shape[1], k_cache.shape[2]
+    G = H // KV
+    scale = scale if scale is not None else D ** -0.5
+    f32 = dict(dtype=torch.float32, device=q.device)
+    if B == 0 or L == 0:
+        return (torch.zeros((B, KV, G, D), **f32),
+                torch.full((B, KV, G), -1e30, **f32),
+                torch.zeros((B, KV, G), **f32))
+    acc_out = torch.empty((B, KV, G, D), **f32)    # the merge writes all
+    m_out = torch.empty((B, KV, G), **f32)
+    l_out = torch.empty((B, KV, G), **f32)
+    split = split_len(B, L, KV, G, sm_count(q.device.index))
+    nsplit = -(-L // split)
+    acc = torch.empty((B, KV, nsplit, G, D), **f32)
+    m = torch.empty((B, KV, nsplit, G), **f32)
+    l = torch.empty((B, KV, nsplit, G), **f32)
+    fn = KERNEL.entry("flash_decode_partials", PARTIALS_ARGS)
+    KERNEL.count_launch()
+    rc = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            lengths.data_ptr(), acc.data_ptr(), m.data_ptr(), l.data_ptr(),
+            acc_out.data_ptr(), m_out.data_ptr(), l_out.data_ptr(), B, L, H,
+            KV, D, DTYPES[q.dtype], DTYPES[k_cache.dtype], split,
+            int(pos_offset), int(window), float(softcap), float(scale),
+            stream_ptr(q))
+    KERNEL.check(rc)
+    return acc_out, m_out, l_out
 
 
 def variant(q: torch.Tensor, k_cache: torch.Tensor) -> str:

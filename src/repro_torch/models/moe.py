@@ -16,6 +16,10 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor
+
+from ..sharding import collectives as col
+from ..sharding.api import active_rules
 from .config import ModelConfig
 from .layers import Param
 
@@ -28,6 +32,13 @@ def init_moe(cfg: ModelConfig) -> Dict[str, Param]:
             "w1": Param((e, d, f), d ** -0.5, compute=True),
             "wg": Param((e, d, f), d ** -0.5, compute=True),
             "w2": Param((e, f, d), f ** -0.5, compute=True)}
+
+
+def moe_axes() -> Dict[str, Any]:
+    return {"router": ("embed", None),
+            "w1": ("expert", "embed", "mlp"),
+            "wg": ("expert", "embed", "mlp"),
+            "w2": ("expert", "mlp", "embed")}
 
 
 def _capacity(tokens: int, cfg: ModelConfig) -> int:
@@ -69,8 +80,11 @@ def _route(x: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
 
 
 def _moe_local(x: torch.Tensor, router, w1, wg, w2, cfg: ModelConfig,
-               compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """x: [B, S, D] -> [B, S, D] in the compute dtype."""
+               compute_dtype=torch.bfloat16, ep=None) -> torch.Tensor:
+    """x: [B, S, D] -> [B, S, D] in the compute dtype. With ``ep`` = (mesh,
+    axis) this is one shard's body: x holds the shard's own tokens (the
+    capacity is its own), w1/wg/w2 its E/P experts, and the dispatch goes
+    to the expert shards and back by two all-to-alls over ``axis``."""
     Bl, Sl, D = x.shape
     x = x.reshape(Bl * Sl, D)
     T = x.shape[0]
@@ -86,11 +100,19 @@ def _moe_local(x: torch.Tensor, router, w1, wg, w2, cfg: ModelConfig,
                         xt[t_s] * keep[:, None].to(compute_dtype),
                         accumulate=True)
 
+    if ep is not None:  # to the expert shards: [E/P, P*C, D], rank-major
+        P = ep[0].size(ep[0].mesh_dim_names.index(ep[1]))
+        dispatch = col.all_to_all(dispatch, *ep).reshape(
+            P, E // P, C, D).transpose(0, 1).reshape(E // P, P * C, D)
+
     # batched expert GLU: one batched product per projection
     h = torch.einsum("ecd,edf->ecf", dispatch, w1.to(compute_dtype))
     g = torch.einsum("ecd,edf->ecf", dispatch, wg.to(compute_dtype))
     h = F.silu(g.float()).to(compute_dtype) * h
     y = torch.einsum("ecf,efd->ecd", h, w2.to(compute_dtype))
+    if ep is not None:  # back to the token shards: [E, C, D]
+        y = col.all_to_all(y.reshape(E // P, P, C, D).transpose(0, 1),
+                           *ep).reshape(E, C, D)
 
     # combine: scatter-add each kept pair's output times its gate
     vals = y[e_c, rank_c] * (g_s * keep)[:, None].to(compute_dtype)
@@ -101,9 +123,29 @@ def _moe_local(x: torch.Tensor, router, w1, wg, w2, cfg: ModelConfig,
 
 def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
               compute_dtype=torch.bfloat16) -> torch.Tensor:
-    """x: [B, S, D] -> [B, S, D] in x's dtype."""
-    out = _moe_local(x, p["router"], p["w1"], p["wg"], p["w2"], cfg,
-                     compute_dtype)
+    """x: [B, S, D] -> [B, S, D] in x's dtype. Under sharding rules (a
+    DTensor x) each shard of (batch, seq) routes its own tokens with its
+    own capacity, and the experts are sharded over the "expert" axis
+    (``repro.models.moe.moe_apply``)."""
+    rules = active_rules()
+    if rules is None or not isinstance(x, DTensor):
+        out = _moe_local(x, p["router"], p["w1"], p["wg"], p["w2"], cfg,
+                         compute_dtype)
+        return out.to(x.dtype)
+    mesh = x.device_mesh
+    ep = rules.bindings.get("expert")
+    if not (isinstance(ep, str) or ep is None):
+        raise ValueError(f"expert axis {ep!r} must be one mesh axis")
+    xl = col.layout(mesh, {rules.bound("batch"): 0, rules.bound("seq"): 1})
+    wl = col.layout(mesh, {ep: 0})
+
+    def body(xs, router, w1, wg, w2):
+        return _moe_local(xs, router, w1, wg, w2, cfg, compute_dtype,
+                          ep=None if ep is None else (mesh, ep))
+
+    out = col.local_call(body, mesh, (x, p["router"], p["w1"], p["wg"],
+                                      p["w2"]),
+                         (xl, col.layout(mesh, {}), wl, wl, wl), xl)
     return out.to(x.dtype)
 
 

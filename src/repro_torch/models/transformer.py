@@ -36,16 +36,19 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..device import DeviceLike, resolve_device
-from .attention import attn_apply, init_cross_kv_cache
+from ..sharding import collectives as col
+from ..sharding.api import checkpoint, shard
+from .attention import attn_apply, attn_axes, init_cross_kv_cache
 from .config import ModelConfig
-from .layers import (Param, chunked_softmax_xent, dense_spec, embed, glu,
-                     glu_spec, rms_norm, truncated_normal_)
-from .mamba import init_mamba_block, mamba_apply
-from .moe import init_moe, moe_apply
-from .rwkv6 import channel_mix, init_rwkv_block, time_mix
+from .layers import (Param, chunked_softmax_xent, dense_axes, dense_spec,
+                     embed, embed_axes, glu, glu_axes, glu_spec, matmul,
+                     rms_norm, truncated_normal_)
+from .mamba import init_mamba_block, mamba_apply, mamba_block_axes
+from .moe import init_moe, moe_apply, moe_axes
+from .rwkv6 import channel_mix, init_rwkv_block, rwkv_block_axes, time_mix
 
 KINDS = ("g", "l", "m", "r")
 
@@ -132,6 +135,53 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     if cfg.frontend:
         spec["frontend_proj"] = dense_spec(cfg.frontend_dim, d)
     return spec
+
+
+def block_axes(cfg: ModelConfig, decoder: bool = True) -> Dict[str, Any]:
+    """Logical axes of one block's tree (``_block_spec``)."""
+    out: Dict[str, Any] = {}
+    for i, kind in enumerate(cfg.layer_pattern):
+        sub: Dict[str, Any] = {"ln1": (None,)}
+        if kind in ("g", "l"):
+            sub["attn"] = attn_axes(cfg)
+        elif kind == "m":
+            sub["mamba"] = mamba_block_axes(cfg)
+        elif kind == "r":
+            sub["rwkv"] = rwkv_block_axes(cfg)
+        if cfg.is_encdec and decoder and kind in ("g", "l"):
+            sub["ln_cross"] = (None,)
+            sub["cross"] = attn_axes(cfg)
+        sub["ln2"] = (None,)
+        if kind != "r":
+            sub["ffn"] = moe_axes() if _moe_static(cfg, i) else glu_axes()
+        if cfg.post_norms:
+            sub["post_ln1"] = (None,)
+            sub["post_ln2"] = (None,)
+        out[f"sub{i}"] = sub
+    return out
+
+
+def _stacked(tree: Any) -> Any:
+    """``tree``'s axes with the leading stacked "layers" axis."""
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    return ("layers",) + tuple(tree)
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """Logical axes of ``init_params``'s tree (same structure)."""
+    axes: Dict[str, Any] = {"embed": embed_axes(), "final_norm": (None,),
+                            "blocks": _stacked(block_axes(cfg))}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = dense_axes("embed", "vocab")
+    if cfg.is_encdec:
+        axes["enc_blocks"] = _stacked({"ln1": (None,),
+                                       "attn": attn_axes(cfg),
+                                       "ln2": (None,), "ffn": glu_axes()})
+        axes["enc_final_norm"] = (None,)
+    if cfg.frontend:
+        axes["frontend_proj"] = dense_axes(None, "embed")
+    return axes
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator,
@@ -251,8 +301,9 @@ def _encode(params, frames: torch.Tensor, cfg: ModelConfig, impl,
     positions and ``enc_final_norm`` (no zero-centring). Under grad mode
     each block keeps only its input and runs again in the backward pass,
     whatever ``remat`` says (the reference checkpoints its encoder body)."""
-    x = frames.to(compute_dtype) @ params["frontend_proj"]["w"].to(
-        compute_dtype)
+    x = matmul(frames.to(compute_dtype),
+               params["frontend_proj"]["w"].to(compute_dtype))
+    x = shard(x, "batch", "seq", "embed")
     positions = torch.arange(frames.shape[1], device=x.device)
     eps = cfg.norm_eps
 
@@ -261,11 +312,12 @@ def _encode(params, frames: torch.Tensor, cfg: ModelConfig, impl,
                             causal=False, positions=positions, impl=impl,
                             compute_dtype=compute_dtype)
         h = h + out
-        return h + glu(rms_norm(h, p["ln2"], eps), p["ffn"], cfg.act,
-                       compute_dtype)
+        h = h + glu(rms_norm(h, p["ln2"], eps), p["ffn"], cfg.act,
+                    compute_dtype)
+        return shard(h, "batch", "seq", "embed")
 
     for p in _unbind(params["enc_blocks"], cfg.n_enc_layers):
-        x = (checkpoint(body, x, p, use_reentrant=False)
+        x = (checkpoint(body, x, p)
              if torch.is_grad_enabled() else body(x, p))
     return rms_norm(x, params["enc_final_norm"], eps)
 
@@ -291,9 +343,10 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
     x = embed(tokens, params["embed"], scale_by_dim=cfg.embed_scale,
               compute_dtype=compute_dtype)
     if cfg.frontend == "vit_stub" and patches is not None:
-        pe = patches.to(compute_dtype) @ params["frontend_proj"]["w"].to(
-            compute_dtype)
+        pe = matmul(patches.to(compute_dtype),
+                    params["frontend_proj"]["w"].to(compute_dtype))
         x = torch.cat([pe, x[:, patches.shape[1]:]], dim=1)
+        x = shard(x, "batch", "seq", "embed")
     enc_out = None
     if cfg.is_encdec and frames is not None:
         enc_out = _encode(params, frames, cfg, impl, compute_dtype)
@@ -307,8 +360,7 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
     for blk in range(cfg.n_blocks):
         c = None if cache is None else _block(cache, blk)
         if remat:
-            x = checkpoint(_block_body, x, blocks[blk], c, use_reentrant=False,
-                           **kw)
+            x = checkpoint(_block_body, x, blocks[blk], c, **kw)
         else:
             x = _block_body(x, blocks[blk], c, **kw)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps,
@@ -369,8 +421,8 @@ def _block_body(x: torch.Tensor, p_block, c_block, *, cfg: ModelConfig,
                 ssm_state=None if c is None else c["ssm"], **kw)
             x = x + out
             if c is not None:
-                c["conv"].copy_(conv)
-                c["ssm"].copy_(ssm)
+                _assign(c["conv"], conv)
+                _assign(c["ssm"], ssm)
         else:
             out, shift_tm, wkv = time_mix(
                 sub["rwkv"], h, cfg,
@@ -382,11 +434,11 @@ def _block_body(x: torch.Tensor, p_block, c_block, *, cfg: ModelConfig,
                 sub["rwkv"], h, cfg,
                 shift_state=None if c is None else c["shift_cm"],
                 compute_dtype=compute_dtype)
-            x = x + out
+            x = shard(x + out, "batch", "seq", "embed")
             if c is not None:
-                c["shift_tm"].copy_(shift_tm)
-                c["shift_cm"].copy_(shift_cm)
-                c["wkv"].copy_(wkv)
+                _assign(c["shift_tm"], shift_tm)
+                _assign(c["shift_cm"], shift_cm)
+                _assign(c["wkv"], wkv)
             continue
         h = rms_norm(x, sub["ln2"], eps, zc)
         if _moe_static(cfg, i):
@@ -395,8 +447,15 @@ def _block_body(x: torch.Tensor, p_block, c_block, *, cfg: ModelConfig,
             out = glu(h, sub["ffn"], cfg.act, compute_dtype)
         if cfg.post_norms and kind in ("g", "l"):
             out = rms_norm(out, sub["post_ln2"], eps, zc)
-        x = x + out
+        x = shard(x + out, "batch", "seq", "embed")
     return x
+
+
+def _assign(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """``dst.copy_(src)``; a DTensor ``src`` is first laid out as ``dst``."""
+    if isinstance(dst, DTensor):
+        src = src.redistribute(dst.device_mesh, dst.placements)
+    dst.copy_(src)
 
 
 def logits_head(params, cfg: ModelConfig, h: torch.Tensor,
@@ -404,12 +463,16 @@ def logits_head(params, cfg: ModelConfig, h: torch.Tensor,
     """fp32 logits with the final softcap; padded vocab rows are -1e30."""
     w = (params["embed"]["table"].T if cfg.tie_embeddings
          else params["lm_head"]["w"])
-    logits = (h.to(compute_dtype) @ w.to(compute_dtype)).float()
+    logits = matmul(h.to(compute_dtype), w.to(compute_dtype)).float()
     if cfg.final_softcap > 0:
         logits = torch.tanh(logits / cfg.final_softcap) * cfg.final_softcap
     if cfg.padded_vocab != cfg.vocab:   # mask padding rows out of the softmax
-        logits[..., cfg.vocab:] = -1e30
-    return logits
+        if isinstance(logits, DTensor):
+            pad = torch.arange(cfg.padded_vocab, device=logits.device)
+            logits = logits.masked_fill(pad >= cfg.vocab, -1e30)
+        else:
+            logits[..., cfg.vocab:] = -1e30
+    return shard(logits, "batch", "act_seq", "vocab")
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, *,
@@ -456,12 +519,27 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache, *,
                        compute_dtype=compute_dtype)
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=h.device)
-        h_last = h[:, -1:]
+        last = None
     else:
         lengths = lengths.to(device=h.device, dtype=torch.int32)
-        idx = (lengths - 1).clamp(0, S - 1).long()
-        h_last = h.gather(1, idx[:, None, None].expand(B, 1, h.shape[-1]))
+        last = (lengths - 1).clamp(0, S - 1).long()
+    if isinstance(h, DTensor):   # each row's last position, on its rows
+        h_last = _gather_rows(h, lengths.long() - 1 if last is None else last)
+    elif last is None:
+        h_last = h[:, -1:]
+    else:
+        h_last = h.gather(1, last[:, None, None].expand(B, 1, h.shape[-1]))
     return logits_head(params, cfg, h_last, compute_dtype), cache, lengths
+
+
+def _gather_rows(h: DTensor, last: torch.Tensor) -> DTensor:
+    """h [B, S, D] at each row's position ``last`` [B], on each rank's rows
+    of h with its sequence whole."""
+    mesh = h.device_mesh
+    rows = tuple(p if p == Shard(0) else Replicate() for p in h.placements)
+    idx = last[:, None, None].expand(h.shape[0], 1, h.shape[-1])
+    return col.local_call(lambda a, i: a.gather(1, i), mesh, (h, idx),
+                          (rows, rows), rows)
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, cache,

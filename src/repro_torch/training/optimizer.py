@@ -17,6 +17,7 @@ from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 
 @dataclass(frozen=True)
@@ -60,11 +61,19 @@ def lr_schedule(cfg: OptimizerConfig, step: Any) -> torch.Tensor:
 
 
 def init_opt_state(params: Any) -> Dict[str, Any]:
+    """{"step": 0, "m": zeros, "v": zeros}; for DTensor params the moments
+    are laid out as their params and the step is replicated."""
     def zeros(p):
+        if isinstance(p, DTensor):
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    device = tree_leaves(params)[0].device
-    return {"step": torch.zeros((), dtype=torch.int32, device=device),
-            "m": tree_map(zeros, params), "v": tree_map(zeros, params)}
+    leaf = tree_leaves(params)[0]
+    step = torch.zeros((), dtype=torch.int32, device=leaf.device)
+    if isinstance(leaf, DTensor):
+        step = DTensor.from_local(step, leaf.device_mesh,
+                                  [Replicate()] * leaf.device_mesh.ndim)
+    return {"step": step, "m": tree_map(zeros, params),
+            "v": tree_map(zeros, params)}
 
 
 def opt_state_axes(axes: Any) -> Dict[str, Any]:

@@ -4,6 +4,7 @@ package, importing the port loads no JAX, and its entry points refuse to
 run quietly on the CPU when no card is present and the caller did not ask
 for the CPU."""
 import ast
+import importlib.util
 import os
 import subprocess
 import sys
@@ -27,6 +28,8 @@ PORT_FILES = (sorted((REPO / "src" / "repro_torch").rglob("*.py"))
               + sorted((REPO / "tools").glob("*_torch.py"))
               + [REPO / "chip_smoke.py"])
 FORBIDDEN = ("jax", "jaxlib", "repro")
+NEW_EXAMPLES = ("quickstart_torch", "elastic_failover_torch",
+                "isolation_check_torch")
 
 
 def _imported_roots(path: Path):
@@ -62,6 +65,12 @@ def test_port_files_exist():
         assert f"src/repro_torch/{module}.py" in names
     assert "examples/serve_multitenant_torch.py" in names
     assert "examples/train_tenant_job_torch.py" in names
+    for example in NEW_EXAMPLES:
+        assert f"examples/{example}.py" in names
+    for module in ("sharding/api", "sharding/planner", "sharding/collectives",
+                   "training/grad_compress", "launch/mesh", "launch/specs",
+                   "launch/spmd"):
+        assert f"src/repro_torch/{module}.py" in names
     assert "tools/planted_faults_torch.py" in names
 
 
@@ -84,6 +93,9 @@ def test_importing_the_port_loads_no_jax():
             "import repro_torch.core, repro_torch.serving.host\n"
             "import repro_torch.training, repro_torch.data, repro_torch.ckpt\n"
             "import repro_torch.launch.train, repro_torch.launch.serve\n"
+            "import repro_torch.sharding.planner, repro_torch.launch.spmd\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.specs\n"
+            "import repro_torch.training.grad_compress\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]\n"
             "assert not bad, bad\n")
@@ -139,3 +151,34 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def _example(name):
+    spec = importlib.util.spec_from_file_location(
+        name, REPO / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", NEW_EXAMPLES)
+def test_new_examples_default_to_the_card(no_cuda, name):
+    """Without ``--device cpu`` each example asks for the card and, with
+    none, raises; none switches to the CPU quietly (the isolation check
+    needs 8 GPUs and says so)."""
+    with pytest.raises(RuntimeError, match="CUDA is not available|8 GPUs"):
+        _example(name).main([])
+
+
+@pytest.mark.parametrize("name", NEW_EXAMPLES)
+def test_new_examples_run_on_the_cpu(name):
+    """``--device cpu``: each ends in "done" (the isolation check on 8 gloo
+    ranks, the failover's checkpoints in a fresh temporary directory)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    res = subprocess.run([sys.executable, str(REPO / "examples" / f"{name}.py"),
+                          "--device", "cpu"], env=env, capture_output=True,
+                         text=True, timeout=300, cwd=REPO)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().splitlines()[-1] == "done"
+    if name == "isolation_check_torch":
+        assert "correctly rejected" in res.stdout

@@ -16,6 +16,8 @@ both routes against ``_mha_torch``, ``MhaFunction``'s gradients through the
 kernel against those through the plain forward, and every ctypes wrapper
 refusing to run under autograd.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -502,12 +504,34 @@ def test_train_loss_decreases_tiny_model():
 
 
 def test_mesh_and_grad_compression_raise():
-    cfg = tconfigs.reduced(tconfigs.get_config("qwen2-7b"))
-    for kw in ({"mesh": object()}, {"grad_compress_pod": True}):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
-            make_train_step(cfg, OptimizerConfig(), **kw)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        make_opt_state({"w": torch.zeros(2)}, grad_compress_pod=True)
+    """A mesh step outside the sharding rules of a plan on that mesh
+    raises; ``grad_compress_pod`` without a "pod" mesh axis is ignored as
+    in the reference (the same step as without it); and
+    ``make_opt_state(grad_compress_pod=True)`` adds the fp32 residual
+    "ef". The sharded and compressed steps themselves are held to the
+    reference in tests/test_torch_sharded_train.py and
+    tests/test_torch_sharding.py."""
+    cfg = tconfigs.reduced(tconfigs.get_config("qwen2-7b"), n_layers=2)
+    mesh = types.SimpleNamespace(mesh_dim_names=("data", "model"))
+    step = make_train_step(cfg, OptimizerConfig(), mesh=mesh)
+    with pytest.raises(ValueError, match="sharding rules"):
+        step({}, {}, {})
+    params = t_init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu", dtype=torch.float32)
+    twin = t_opt.tree_map(torch.clone, params)
+    batch = {"tokens": np.arange(16, dtype=np.int32).reshape(2, 8)}
+    _, _, m1 = make_train_step(cfg, OptimizerConfig(), grad_compress_pod=True)(
+        params, make_opt_state(params), batch)
+    _, _, m2 = make_train_step(cfg, OptimizerConfig())(
+        twin, make_opt_state(twin), batch)
+    assert float(m1["loss"]) == float(m2["loss"])
+    for a, b in zip(t_opt.tree_leaves(params), t_opt.tree_leaves(twin)):
+        assert torch.equal(a, b)
+    state = make_opt_state({"w": torch.ones(2, dtype=torch.bfloat16)},
+                           grad_compress_pod=True)
+    assert set(state) == {"step", "m", "v", "ef"}
+    assert state["ef"]["w"].dtype == torch.float32
+    assert not state["ef"]["w"].any()
 
 
 # ------------------------------------------------------------ on the card
