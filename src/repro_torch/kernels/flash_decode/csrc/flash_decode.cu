@@ -426,6 +426,33 @@ decode_mma_kernel(const __grid_constant__ CUtensorMap tm_k, const __grid_constan
 
 // ---------------------------------------------------------------- combine
 
+// The chunks' partials of one (row, q head, dim d) reduced over the chunks
+// [s0, s1) that hold the row's valid positions, in a cache of L positions
+// starting at global position off (len first clamped to lclamp, as in
+// chunk_range): M = max_s m_s, num = sum_s acc_s e^(m_s - M) and den =
+// sum_s l_s e^(m_s - M). No such chunk gives M NEG_INF and num = den = 0.
+__device__ __forceinline__ void reduce_chunks(const float* __restrict__ acc,
+                                              const float* __restrict__ m,
+                                              const float* __restrict__ l, int len, int L,
+                                              int window, int split, int off, int lclamp,
+                                              long long base, int G, int g, int D, int d,
+                                              float& M, float& num, float& den) {
+  len = min(len, lclamp);
+  const int lo = max((window > 0 ? max(0, len - window) : 0) - off, 0);
+  const int hi = min(len - off, L);                   // local valid positions [lo, hi)
+  const int s0 = lo / split, s1 = hi > lo ? (hi - 1) / split + 1 : s0;   // chunks [s0, s1)
+  M = NEG_INF;
+  for (int s = s0; s < s1; ++s) M = fmaxf(M, m[(base + s) * G + g]);
+  num = 0.f;
+  den = 0.f;
+  for (int s = s0; s < s1; ++s) {
+    const long long i = (base + s) * G + g;
+    const float w = expf(m[i] - M);
+    num += acc[i * D + d] * w;
+    den += l[i] * w;
+  }
+}
+
 // out[b, 0, h, d] = sum_s acc_s e^(m_s - M) / (sum_s l_s e^(m_s - M) + 1e-30)
 // over the chunks s that hold valid positions; grid (H, B), D threads.
 template <typename TQ>
@@ -436,19 +463,9 @@ __global__ void decode_combine_kernel(const float* __restrict__ acc, const float
                                       int window) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x, G = H / KV;
   const int n = h / G, g = h - n * G;
-  const int len = min(lengths[b], L);
-  const int lo = window > 0 ? max(0, len - window) : 0;
-  const int s0 = lo / split, s1 = len > lo ? (len - 1) / split + 1 : s0;   // chunks [s0, s1)
-  const long long base = ((long long)b * KV + n) * nsplit;
-  float M = NEG_INF;
-  for (int s = s0; s < s1; ++s) M = fmaxf(M, m[(base + s) * G + g]);
-  float num = 0.f, den = 0.f;
-  for (int s = s0; s < s1; ++s) {
-    const long long i = (base + s) * G + g;
-    const float w = expf(m[i] - M);
-    num += acc[i * D + d] * w;
-    den += l[i] * w;
-  }
+  float M, num, den;
+  reduce_chunks(acc, m, l, lengths[b], L, window, split, 0, L,
+                ((long long)b * KV + n) * nsplit, G, g, D, d, M, num, den);
   out[((long long)b * H + h) * D + d] = from_f<TQ>(num / (den + 1e-30f));
 }
 
@@ -463,20 +480,9 @@ __global__ void decode_merge_kernel(const float* __restrict__ acc, const float* 
                                     int split, int nsplit, int window, int off) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x, G = H / KV;
   const int n = h / G, g = h - n * G;
-  const int len = lengths[b];
-  const int lo = max((window > 0 ? max(0, len - window) : 0) - off, 0);
-  const int hi = min(len - off, L);                   // local valid positions [lo, hi)
-  const int s0 = lo / split, s1 = hi > lo ? (hi - 1) / split + 1 : s0;
-  const long long base = ((long long)b * KV + n) * nsplit;
-  float M = NEG_INF;
-  for (int s = s0; s < s1; ++s) M = fmaxf(M, m[(base + s) * G + g]);
-  float num = 0.f, den = 0.f;
-  for (int s = s0; s < s1; ++s) {
-    const long long i = (base + s) * G + g;
-    const float w = expf(m[i] - M);
-    num += acc[i * D + d] * w;
-    den += l[i] * w;
-  }
+  float M, num, den;
+  reduce_chunks(acc, m, l, lengths[b], L, window, split, off, 0x7fffffff,
+                ((long long)b * KV + n) * nsplit, G, g, D, d, M, num, den);
   const long long o = ((long long)b * KV + n) * G + g;
   acc_out[o * D + d] = num;
   if (d == 0) {

@@ -222,8 +222,21 @@ def validate_groups(groups: Sequence[FrozenSet[int]],
     return the number of groups. The groups are handed to the router's
     ``validate_isolation`` as the replica groups of collectives, so a
     torch program is held to the same rule as a compiled XLA program (the
-    router itself stays the reference's copy)."""
+    router itself stays the reference's copy).
+
+    This ties the check to the text the router parses: each group is
+    written as one HLO ``all-reduce replica_groups={{...}}`` line, the form
+    ``MeshRouter._COLLECTIVE_RE`` reads. Should that parser stop reading
+    a line, the count it returns falls short and this raises
+    ``RuntimeError`` instead of passing groups unchecked
+    (``tests/test_torch_sharding.py`` holds both outcomes of the rule)."""
     from ..core.router import MeshRouter
+    groups = [g for g in groups if g]
     text = "\n".join("all-reduce replica_groups={{%s}}"
                      % ",".join(str(r) for r in sorted(g)) for g in groups)
-    return MeshRouter.validate_isolation(text, slice_ranks)
+    n = MeshRouter.validate_isolation(text, slice_ranks)
+    if n != len(groups):
+        raise RuntimeError(f"the router read {n} of {len(groups)} collective "
+                           "groups: its HLO parser no longer reads the text "
+                           "validate_groups writes")
+    return n

@@ -17,6 +17,7 @@ feedback to 1e-6 (readings 0.0: the same fp32 operations in the same
 order).
 """
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -343,6 +344,41 @@ def test_validate_groups_uses_the_router_rule():
     assert validate_groups([], range(4)) == 0
     with pytest.raises(IsolationViolation, match=r"\[4\]"):
         validate_groups([frozenset({0, 1}), frozenset({0, 4})], range(4))
+
+
+# Two tenant slices of 8 ranks, 0-7 and 8-15 (two-digit ranks included).
+SLICES = {"a": range(0, 8), "b": range(8, 16)}
+
+
+@pytest.mark.parametrize("groups,inside,outside", [
+    ([{0, 1, 2, 3}, {4, 5, 6, 7}, {0, 4}], "a", "b"),      # in slice a
+    ([{8, 9}, {10, 11, 12, 13, 14, 15}, {15}], "b", "a"),  # in slice b
+    ([set(range(8, 16))], "b", "a"),                      # all of slice b
+    ([{0, 1}, {7, 8}], None, "ab"),                        # straddles both
+    ([set(range(16))], None, "ab"),                        # the whole world
+], ids=["in-a", "in-b", "all-of-b", "straddling", "world"])
+def test_validate_groups_accepts_in_slice_and_rejects_straddling(
+        groups, inside, outside):
+    """Each group set through the router's parser: every group is counted
+    (a parser that skipped one would raise, not pass), groups inside a
+    slice pass it, and a slice refuses any group that reaches beyond it."""
+    groups = [frozenset(g) for g in groups]
+    if inside:
+        assert validate_groups(groups, SLICES[inside]) == len(groups)
+    for name in outside:
+        with pytest.raises(IsolationViolation,
+                           match="outside the tenant slice"):
+            validate_groups(groups, SLICES[name])
+
+
+def test_validate_groups_raises_when_the_parser_reads_too_few(monkeypatch):
+    """A router whose parser no longer reads the lines ``validate_groups``
+    writes must not let the groups pass unchecked."""
+    from repro_torch.core.router import MeshRouter
+    monkeypatch.setattr(MeshRouter, "_COLLECTIVE_RE",
+                        re.compile(r"(?!)(x)(y)"))   # matches nothing
+    with pytest.raises(RuntimeError, match="read 0 of 2"):
+        validate_groups([frozenset({0, 1}), frozenset({8, 9})], range(16))
 
 
 # -------------------------------------- cross-pod compression, 8 gloo ranks
