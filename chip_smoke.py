@@ -156,7 +156,21 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    fleet run's launches must be the sum over its replicas. Lines
    ``fleet qwen2-7b ...`` and ``fleet_ab {...}`` (``fleet_phase``).
 
-9. multi-GPU, after the last model is freed: qwen2-7b at full width cut
+9. roofline, after the last model is freed (``roofline_phase``): the
+   dry-run (``repro_torch.launch.dryrun``, a host run over a fake process
+   group and fake tensors) of qwen2-7b train_4k on the production 16 x 16
+   mesh, then of two cells this run measured on the card, on a mesh of
+   one: qwen2-7b's decode step at B 8 against a cache of 1024 (the
+   serving phase's graphed step medians) and qwen2-7b cut to 8 layers at
+   train_4k, batch 4 as 2 microbatches (``train_phase``'s step median and
+   peak memory). Every step-time lower bound must lie at or below its
+   measured step times, and the predicted peak memory of the train step
+   within ``ROOFLINE_MEM_TOL`` of the measured one (``roofline {...}``).
+   gemma2-9b's softcapped attention shapes (prefill, decode, and the
+   training forward and backward) are also timed through one compiled
+   ``flex_attention`` call, their library time (SDPA has no softcap);
+
+10. multi-GPU, after the last model is freed: qwen2-7b at full width cut
    to 2 layers through the sharded code paths on an NCCL mesh of every
    visible GPU, in processes of their own (``sharded_step_phase``): one
    train step against the port's single-device step, a prefill under the
@@ -298,6 +312,61 @@ def attn_bound(B, S, T, H, KV, D, causal, window, esize=2):
     return bound(nbytes, flops, "bfloat16")
 
 
+def flex_attention_call(B, S, T, H, KV, D, *, causal, window, softcap,
+                        lengths=None):
+    """One call of ``torch.nn.attention.flex_attention`` (compiled with
+    ``torch.compile``) that computes the kernels' function where SDPA
+    cannot: the tanh softcap as a ``score_mod``, the causal window and,
+    for decode (``lengths``: one query row at ``lengths[b] - 1``), each
+    row's length as a ``block_mask``. Takes and returns [B, S, H, D]; its
+    first call compiles."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    off = T - S
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        qpos = lengths[b] - 1 if lengths is not None else q_idx + off
+        keep = kv_idx <= qpos if (causal or lengths is not None) else \
+            kv_idx >= 0
+        if window > 0:
+            keep = keep & (kv_idx > qpos - window)
+        return keep
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return torch.tanh(score / softcap) * softcap
+
+    block_mask = create_block_mask(mask_mod, B if lengths is not None
+                                   else None, None, S, T, device="cuda")
+    fn = torch.compile(flex_attention, dynamic=False)
+
+    def call(q, k, v):
+        return fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                  score_mod=score_mod if softcap > 0.0 else None,
+                  block_mask=block_mask, enable_gqa=KV < H).transpose(1, 2)
+    return call
+
+
+def flex_library_ms(call, args, want, tol=2e-2):
+    """(device ms, note) of ``call(*args)``, compiled before the timed
+    window, held against ``want`` (the plain version's output) at ``tol``.
+    A library call that fails to build, or computes another function,
+    gives no time, and the note says why."""
+    try:
+        out = call(*args)
+        sync()
+        err = max_err(out, want)
+        if not err <= tol:
+            return None, f"flex_attention disagrees: max abs error {err!r}"
+        try:
+            return graph_ms(lambda: call(*args)), \
+                f"flex_attention, compiled (max abs error {err!r})"
+        except Exception:      # a compiled call that a graph cannot hold
+            return time_ms(lambda: call(*args)), \
+                f"flex_attention, compiled, events (max abs error {err!r})"
+    except Exception as e:
+        return None, f"flex_attention failed: {type(e).__name__}: {e}"[:300]
+
+
 def prefill_shape(gen, label, B, S, H, KV, D, window, softcap, sdpa, *,
                   T=None, causal=True, iters=20):
     """bf16 prefill attention at a served shape (T keys, S by default;
@@ -321,8 +390,12 @@ def prefill_shape(gen, label, B, S, H, KV, D, window, softcap, sdpa, *,
     plain_ms = time_ms(lambda: mha(q, k, v, impl="torch", **kw), iters=3,
                        warmup=1)
     library_ms, library = None, sdpa
-    if sdpa is None:
-        library = "none: SDPA has no softcap"
+    if sdpa is None:      # SDPA has no softcap
+        want = mha(q, k, v, impl="torch", **kw)
+        library_ms, library = flex_library_ms(flex_attention_call(
+            B, S, T, H, KV, D, causal=causal, window=window,
+            softcap=softcap), (q, k, v), want)
+        del want
     else:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
@@ -467,8 +540,13 @@ def decode_shape(gen, label, B, L, H, KV, D, window, softcap):
                                            **kw), iters=50)
     plain_ms = time_ms(lambda: decode_mha(q, kc, vc, lengths, impl="torch",
                                           **kw), iters=10)
-    library_ms, library = None, "none: SDPA has no softcap"
-    if softcap == 0.0 and (window == 0 or window >= L):
+    library_ms = None
+    library = "none: a window shorter than the cache needs its own mask"
+    if softcap > 0.0:     # SDPA has no softcap
+        library_ms, library = flex_library_ms(flex_attention_call(
+            B, 1, L, H, KV, D, causal=True, window=window, softcap=softcap,
+            lengths=lengths), (q, kc, vc), ref, tol=3e-2)
+    elif window == 0 or window >= L:
         mask = torch.arange(L, device=dev)[None, :] < lengths[:, None].long()
         qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
         library_ms = graph_ms(lambda: F.scaled_dot_product_attention(
@@ -1103,7 +1181,7 @@ def window_phase(cfg, tol, why):
 
 
 def serving_phase(cfg, kernels, *, n_req, max_new, profile_admits=False,
-                  profile_scan=None):
+                  profile_scan=None, record=None):
     """``cfg`` served to 3 WRR tenants behind ``ContinuousBatcher`` by two
     engines on one set of seeded bf16 weights in this process: the default
     one, whose decode step is one CUDA graph, and its eager twin
@@ -1117,7 +1195,9 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile_admits=False,
     calls and ``profile_scan`` = (kernel, per-step entry, kernel-name
     match) a recurrent one, on the graphed twin. Prints a ``serving_ab``
     JSON line and returns the first graphed drain's launch counts, with the
-    weights and the graphed engine (the fleet phase's lone twin)."""
+    weights and the graphed engine (the fleet phase's lone twin). With
+    ``record`` (a dict) its "step_ms" gets the graphed drains' decode-step
+    medians."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.monotonic()
     params = M.init_params(cfg, generator=gen, device="cuda",
@@ -1180,6 +1260,9 @@ def serving_phase(cfg, kernels, *, n_req, max_new, profile_admits=False,
             p50, p99, mx = r["ttft_ms"][t]
             print(f"serving {cfg.name} {r['twin']}: {t} (weight {weights[t]}) "
                   f"TTFT p50 {p50:.1f} ms p99 {p99:.1f} ms max {mx:.1f} ms")
+    if record is not None:
+        record["step_ms"] = [r["step_median_ms"] for r in runs
+                             if r["twin"] == "graphed"]
     for r in runs[1:]:
         assert r["tokens"] == runs[0]["tokens"], \
             f"{cfg.name}: the {r['twin']} twin's greedy tokens differ"
@@ -2338,8 +2421,9 @@ def train_kernel_phase(gen):
     ``MhaFunction``'s dq/dk/dv with the kernel's forward against the same
     backward on the plain forward (and, at B 1, S 300, against "ref"
     autograd), then times: the kernel's forward with and without the lse,
-    the backward's device time, forward plus backward against SDPA's (qwen2
-    only: SDPA has no softcap), each beside its bound. Lines
+    the backward's device time, forward plus backward against SDPA's
+    (qwen2; for gemma2's softcap and window, ``flex_attention``'s), each
+    beside its bound. Lines
     ``train_kernel {...}``; returns the qwen2 row."""
     from repro_torch.kernels.flash_attention.ops import (MhaFunction,
                                                          _mha_bwd_torch,
@@ -2413,6 +2497,26 @@ def train_kernel_phase(gen):
                     torch.autograd.grad(o, (qt, kt, vt), dt)
                 row["sdpa_fwd_bwd_ms"] = time_ms(sdpa, iters=3, warmup=1)
                 del qt, kt, vt
+            else:         # SDPA has no softcap: flex_attention's fwd + bwd
+                call = flex_attention_call(B, S, S, H, KV, D, causal=True,
+                                           window=window, softcap=softcap)
+                row["flex_fwd_ms"], row["flex_note"] = flex_library_ms(
+                    call, (q, k, v), out)
+                row["flex_fwd_bwd_ms"] = None
+                if row["flex_fwd_ms"] is not None:
+                    flex_leaves = [t.detach().requires_grad_(True)
+                                   for t in (q, k, v)]
+
+                    def flex():
+                        o = call(*flex_leaves)
+                        torch.autograd.grad(o, flex_leaves, dout)
+                    try:    # the first call compiles the backward too
+                        row["flex_fwd_bwd_ms"] = time_ms(flex, iters=3,
+                                                         warmup=1)
+                    except Exception as e:
+                        row["flex_note"] += (f"; backward failed: "
+                                             f"{type(e).__name__}: {e}")[:300]
+                    del flex_leaves
             del leaves
         del out, lse
         print("train_kernel " + json.dumps(row))
@@ -2573,7 +2677,7 @@ def train_scan_phase(gen):
 
 
 def train_phase(cfg, kernels, cut, steps=6, microbatches=2, batch=4,
-                seq=4096):
+                seq=4096, record=None):
     """``cfg`` at full width, cut by ``cut`` (a depth, and for jamba a
     shorter pattern), fp32 masters (parameters, gradients, m and v: 16
     bytes a parameter), bf16 compute: train_4k's sequence of 4096 at batch
@@ -2586,7 +2690,8 @@ def train_phase(cfg, kernels, cut, steps=6, microbatches=2, batch=4,
     a layer and microbatch, forward and remat recompute; a scan as often,
     one launch a group of 16 chunks), then one profiled step with the
     shares of attention's and the scans' PyTorch backwards. Returns the
-    path's launches."""
+    path's launches; with ``record`` (a dict) the ``train_step`` row goes
+    into it."""
     from repro_torch.data import DataConfig, SyntheticTokens
     from repro_torch.kernels.scan_groups import group_bounds
     from repro_torch.models.config import ShapeConfig
@@ -2696,6 +2801,8 @@ def train_phase(cfg, kernels, cut, steps=6, microbatches=2, batch=4,
            "peak_allocated_gb": peak_gb, "losses": losses,
            "launches_per_step": {k: n for k, n in per_step.items() if n}}
     print("train_step " + json.dumps(row))
+    if record is not None:
+        record.update(row)
 
     # one profiled step: device busy share, attention forward (kernel) and
     # the PyTorch backwards of attention and the scans (their Functions'
@@ -3168,6 +3275,64 @@ def failover_phase():
     print(f"failover: phase {time.monotonic() - t0:.1f} s")
 
 
+# the dry-run's predicted peak memory of a train step against the card's
+# max_memory_allocated, relative: the first card run read 0.97% (58.55 GB
+# predicted, 59.12 GB measured; PERF.md section 6, PR 24), kept with 2x room
+ROOFLINE_MEM_TOL = 0.02
+
+
+def roofline_phase(serving, train):
+    """The dry-run (``repro_torch.launch.dryrun``) on the host, then held
+    to this run's own measurements. (a) qwen2-7b train_4k on the
+    production 16 x 16 mesh over a fake process group of 256 ranks. (b)
+    Two cells on a mesh of one GPU that earlier phases measured on the
+    card: qwen2-7b's decode step at B 8 against a cache of 1024 (the
+    serving phase's graphed drains' step medians) and qwen2-7b cut to 8
+    layers at train_4k, batch 4 as 2 microbatches (``train_phase``'s step
+    median and ``max_memory_allocated``; ``serving`` and ``train`` are
+    those phases' ``record`` dicts). Each cell's step-time lower bound
+    (the largest of its compute, memory and collective terms at the H100's
+    peak rates) must lie at or below every measured step time, and the
+    predicted peak memory of the train step within ``ROOFLINE_MEM_TOL`` of
+    the measured peak. Lines ``roofline {...}``."""
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.sharding.api import abstract_mesh
+    t_phase = time.monotonic()
+    keys = ("arch", "shape", "mesh", "chips", "hlo_flops", "model_flops",
+            "hlo_bytes", "t_compute", "t_memory", "t_collective",
+            "bottleneck", "mfu_bound", "bytes_per_device", "microbatches",
+            "fits", "collective_counts", "t_lower_s")
+    rec = lower_cell("qwen2-7b", "train_4k")
+    print("roofline " + json.dumps({k: rec[k] for k in keys}))
+    one = abstract_mesh((1, 1), ("data", "model"))
+    cells = [("qwen2-7b decode B8 L1024 (serving)",
+              dict(shape=ShapeConfig("decode", 1024, 8, "decode")),
+              serving["step_ms"], None),
+             ("qwen2-7b 8 layers train_4k B4 as 2 microbatches",
+              dict(cut=dict(n_layers=8), plan_overrides={"microbatches": 2},
+                   shape=ShapeConfig("train_4k", 4096, 4, "train")),
+              [train["step_ms_median"]], train["peak_allocated_gb"])]
+    for label, kw, measured_ms, measured_gb in cells:
+        rec = lower_cell("qwen2-7b", label, mesh=one, **kw)
+        bound_ms = 1e3 * max(rec["t_compute"], rec["t_memory"],
+                             rec["t_collective"])
+        row = {k: rec[k] for k in keys}
+        row.update(step_time_lower_bound_ms=bound_ms,
+                   predicted_peak_gb=rec["bytes_per_device"] / 1e9,
+                   measured_step_ms=measured_ms, measured_peak_gb=measured_gb)
+        print("roofline " + json.dumps(row))
+        check(f"roofline {label}: step-time bound over the fastest measured "
+              "step (a bound above a measured time means a wrong count)",
+              bound_ms / min(measured_ms), 1.0)
+        if measured_gb is not None:
+            check(f"roofline {label}: predicted peak memory against "
+                  "max_memory_allocated, relative",
+                  abs(rec["bytes_per_device"] / 1e9 / measured_gb - 1),
+                  ROOFLINE_MEM_TOL)
+    print(f"roofline: phase {time.monotonic() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -3224,9 +3389,10 @@ def main() -> int:
     trace_readers_phase(torch.Generator(device="cuda").manual_seed(SEED + 10))
     train_scan_phase(torch.Generator(device="cuda").manual_seed(SEED + 8))
     free_card()
+    measured = {"train": {}, "serving": {}}   # what the roofline phase reads
     train_paths = {
         "qwen2-7b train (8 layers, train_4k)": train_phase(
-            qwen2, kernels, dict(n_layers=8)),
+            qwen2, kernels, dict(n_layers=8), record=measured["train"]),
         "rwkv6-7b train (8 layers, train_4k)": train_phase(
             rwkv6, kernels, dict(n_layers=8), steps=3),
         # jamba at 2 microbatches peaked at 81.8 GB on an H100 80GB: out of memory
@@ -3279,7 +3445,8 @@ def main() -> int:
     by_path = {"grouped_gemm op, dropless MoE experts at "
                + ", ".join(MOE_CONFIGS): gg_path, **train_paths}
     by_path["qwen2-7b"], (params, lone) = serving_phase(
-        qwen2, kernels, n_req=24, max_new=32, profile_admits=True)
+        qwen2, kernels, n_req=24, max_new=32, profile_admits=True,
+        record=measured["serving"])
     by_path["qwen2-7b admission A/B"] = admission_ab(
         qwen2, kernels, params, n_req=24, max_new=32)
     free_card()
@@ -3322,6 +3489,7 @@ def main() -> int:
                                             max_new=32)[0]
     free_card()
     print(f"serving internvl2-2b: phase {time.monotonic() - t0:.1f} s")
+    roofline_phase(measured["serving"], measured["train"])
     t0 = time.monotonic()
     sharded = sharded_step_phase()
     by_path["qwen2-7b sharded (2 layers)"] = {

@@ -66,8 +66,22 @@ def attn_apply(p: Dict[str, Any], x: torch.Tensor, *, cfg: ModelConfig,
                 "cross-attention against a cache with enc_len 0: build the "
                 "cache with enc_len > 0, or prefill with frames")
         q = shard(q, "batch", "attn_seq", "heads", None)
-        out = _attend(q, cache["k"], cache["v"], causal=False,
-                      softcap=cfg.attn_softcap, impl=impl)
+        rules = active_rules()
+        if (S == 1 and isinstance(cache["k"], DTensor) and rules is not None
+                and isinstance(rules.bindings.get("cache_seq"), str)):
+            # one query row against a sequence-sharded cross cache: every
+            # position is valid, so it is decode attention at length T,
+            # which combines each rank's slice (``_decode_mha_seq_sharded``)
+            # instead of gathering the cache to every rank, as the
+            # reference's partitioner splits it
+            T = cache["k"].shape[1]
+            out = attn_ops.decode_mha(
+                q, cache["k"], cache["v"],
+                torch.full((B,), T, dtype=torch.int32, device=x.device),
+                softcap=cfg.attn_softcap, impl=impl)
+        else:
+            out = _attend(q, cache["k"], cache["v"], causal=False,
+                          softcap=cfg.attn_softcap, impl=impl)
         out = shard(out, "batch", "attn_seq", "heads", None)
         return _out_proj(out.reshape(B, S, H * hd), p["wo"],
                          compute_dtype), cache

@@ -322,6 +322,19 @@ def _encode(params, frames: torch.Tensor, cfg: ModelConfig, impl,
     return rms_norm(x, params["enc_final_norm"], eps)
 
 
+def _rows_like(t: torch.Tensor, like: DTensor) -> DTensor:
+    """A plain tensor, the same on every rank, as a DTensor whose dims 0 and
+    1 are sharded as ``like``'s (batch and sequence; its other dims
+    whole), where they divide: each rank projects only its own patches,
+    as the reference's sharded step does."""
+    mesh = like.device_mesh
+    pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 1)
+               and t.shape[p.dim] % mesh.size(i) == 0 else Replicate()
+               for i, p in enumerate(like.placements))
+    return DTensor.from_local(col.local_part(t, mesh, pl), mesh, pl,
+                              run_check=False)
+
+
 def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
             positions: Optional[torch.Tensor] = None, cache=None,
             lengths: Optional[torch.Tensor] = None,
@@ -343,8 +356,10 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
     x = embed(tokens, params["embed"], scale_by_dim=cfg.embed_scale,
               compute_dtype=compute_dtype)
     if cfg.frontend == "vit_stub" and patches is not None:
-        pe = matmul(patches.to(compute_dtype),
-                    params["frontend_proj"]["w"].to(compute_dtype))
+        pt = patches.to(compute_dtype)
+        if isinstance(x, DTensor):  # each rank projects its own rows only
+            pt = _rows_like(pt, x)
+        pe = matmul(pt, params["frontend_proj"]["w"].to(compute_dtype))
         x = torch.cat([pe, x[:, patches.shape[1]:]], dim=1)
         x = shard(x, "batch", "seq", "embed")
     enc_out = None

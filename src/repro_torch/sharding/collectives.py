@@ -25,6 +25,7 @@ import torch.distributed._functional_collectives as funcol
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
+from torch._subclasses.fake_tensor import unset_fake_temporarily
 
 Placements = Tuple[Union[Shard, Replicate], ...]
 
@@ -47,18 +48,26 @@ def layout(mesh, dims: Dict[Any, int]) -> Placements:
     return tuple(out)
 
 
+def _shard_box(x: DTensor, placements: Placements):
+    """(local shape, global offset) of this rank's shard. DTensor computes
+    them from the mesh's coordinate tensor, a real tensor that a fake
+    tensor mode (the dry-run's) would turn into a fake one whose values
+    cannot be read; so the mode is set aside for the arithmetic."""
+    with unset_fake_temporarily():
+        return compute_local_shape_and_global_offset(
+            x.shape, x.device_mesh, placements)
+
+
 def local_shape(x: DTensor) -> Tuple[int, ...]:
     """The shape of this rank's shard."""
-    return tuple(compute_local_shape_and_global_offset(
-        x.shape, x.device_mesh, x.placements)[0])
+    return tuple(_shard_box(x, x.placements)[0])
 
 
 def global_offset(x: DTensor, placements: Optional[Placements] = None
                   ) -> Tuple[int, ...]:
     """The global index of the first element of this rank's shard of x,
     laid out as it is or by ``placements`` (nothing moves)."""
-    return tuple(compute_local_shape_and_global_offset(
-        x.shape, x.device_mesh, placements or x.placements)[1])
+    return tuple(_shard_box(x, placements or x.placements)[1])
 
 
 # ------------------------------------------------------------- collectives
@@ -84,8 +93,11 @@ def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 
 
 def all_reduce(x: torch.Tensor, op: str, mesh, axis: str) -> torch.Tensor:
-    """All-reduce (``"sum"`` or ``"max"``) over ``axis``; no gradient."""
-    return funcol.all_reduce(x.contiguous(), op, group(mesh, axis)).wait()
+    """All-reduce (``"sum"`` or ``"max"``) over ``axis``; no gradient.
+    ``wait_tensor`` rather than the result's ``.wait()``, which a fake
+    tensor lacks."""
+    return funcol.wait_tensor(funcol.all_reduce(x.contiguous(), op,
+                                                group(mesh, axis)))
 
 
 class _SumOfReplicated(torch.autograd.Function):

@@ -69,7 +69,8 @@ def test_port_files_exist():
         assert f"examples/{example}.py" in names
     for module in ("sharding/api", "sharding/planner", "sharding/collectives",
                    "training/grad_compress", "launch/mesh", "launch/specs",
-                   "launch/spmd"):
+                   "launch/spmd", "launch/dryrun", "roofline/analysis",
+                   "roofline/trace_cost"):
         assert f"src/repro_torch/{module}.py" in names
     assert "tools/planted_faults_torch.py" in names
 
