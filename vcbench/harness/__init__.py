@@ -1,0 +1,11 @@
+"""The benchmark harness of the PyTorch/CUDA port (``repro_torch``).
+
+Everything that belongs to one configuration, one traffic mix or one
+per-layer metric lives in a file of its own, found by the name that
+``BENCHMARK.json`` gives it (``manifest.py``). The modules here are the
+yardstick: traffic generation (``traffic.py``), the weights made from the
+seed (``weights.py``), the counts of operations and bytes and the chip's
+peaks (``flops.py``), the trace readers (``kineto.py``), the two kinds
+of cell (``serve.py``, ``train.py``) and the comparison that decides
+``correct`` (``check.py``, against ``vcbench/reference``).
+"""
