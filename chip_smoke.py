@@ -1390,11 +1390,11 @@ def long_window_drain(cfg, kernels, params, *, max_new=8):
     runs = []
     for graph_admit in (False, True, True):
         engine._graph_admit = graph_admit
-        replays = engine._admit_replays
+        replays = engine.admit_replays
         r = drain(cfg, engine, batcher, kernels, weights, len(reqs), max_new,
                   reqs=reqs)
         r["twin"] = "graphed admission" if graph_admit else "eager admission"
-        r["admit_replays"] = engine._admit_replays - replays
+        r["admit_replays"] = engine.admit_replays - replays
         runs.append(r)
         a = r["admits"]
         print(f"long_window {cfg.name} max_len 8192 {r['twin']}: "
@@ -1566,10 +1566,10 @@ def admission_ab(cfg, kernels, params, *, n_req, max_new):
     runs = []
     for graph_admit in (False, True, False, True):
         engine._graph_admit = graph_admit
-        replays, graphs = engine._admit_replays, len(engine._admit_graphs)
+        replays, graphs = engine.admit_replays, len(engine._admit_graphs)
         r = drain(cfg, engine, batcher, kernels, weights, n_req, max_new)
         r.update(twin=label[graph_admit],
-                 admit_replays=engine._admit_replays - replays,
+                 admit_replays=engine.admit_replays - replays,
                  graphs_captured=len(engine._admit_graphs) - graphs)
         if graph_admit and "after its admission graphs" not in mem:
             mem["after its admission graphs"] = memory_gb()
@@ -1657,7 +1657,6 @@ def drain(cfg, engine, batcher, kernels, weights, n_req, max_new,
     assert launches == want, (launches, want, d)
     assert all(launches[k] > 0 for k, n in want.items() if n), launches
     assert d["host_syncs"] == d["admit_calls"] + d["steps"], d
-    assert after["full_cache_copies"] == 0
     tokens = [done[uid].tokens for uid in uids]
     n_tok = sum(len(t) for t in tokens)
     return {"tokens": tokens, "tokens_total": n_tok, "wall_s": wall,
@@ -1855,7 +1854,6 @@ def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
             c0 = before.get(engine, dict.fromkeys(engine.counters(), 0))
             d = {key: v - c0[key] for key, v in engine.counters().items()}
             assert d["host_syncs"] == d["admit_calls"] + d["steps"], d
-            assert d["full_cache_copies"] == 0, d
             for name, n in expected_launches(cfg, d).items():
                 want[name] += n
             if engine not in before:     # its capture's warm-up step ran
@@ -1968,7 +1966,7 @@ def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
                 ("2 -> 3 replicas", None, True)):
             for b in builds[n_before:]:
                 b["engine"]._graph_admit = graph_admit
-            replays = {b["engine"]: b["engine"]._admit_replays
+            replays = {b["engine"]: b["engine"].admit_replays
                        for b in builds[n_before:]}
             fleet.pop_completed()
             mark = {e: len(t) for e, t in step_ms.items()}
@@ -1987,7 +1985,7 @@ def fleet_phase(cfg, kernels, params, lone, *, n_req, max_new):
             mem[f"{fleet.live_replicas()} replicas"] = \
                 torch.cuda.memory_allocated()
             r = summary(label, [done[u] for u in uids])
-            r["admit_replays"] = sum(e._admit_replays - n
+            r["admit_replays"] = sum(e.admit_replays - n
                                      for e, n in replays.items())
             r["replica_steps"] = {
                 labels[e]: (len(t) - mark.get(e, 0),

@@ -27,6 +27,14 @@ that path observable in situ:
   upward worker lands the first status back
   (:meth:`Tracer.finish_pending`); the registry is bounded and idempotent,
   so status flaps and forgotten objects cannot leak memory.
+- **span lane** — high-rate spans with no ids and no sampling (a serving
+  engine's step and admission phases, its drive loop's turns):
+  :meth:`Tracer.lane_span` appends ``(name, start, end, attrs)`` to a
+  bounded ring of the lane's own and adds to per-name totals (count,
+  seconds) that never wrap; :meth:`Tracer.lane_add` adds a duration taken
+  elsewhere (a device time from CUDA events) to the totals alone. A
+  window's figures are the difference of two :meth:`Tracer.lane_totals`
+  snapshots. (The port's own; the reference's tracer has no lane.)
 
 Context across quanta
 ---------------------
@@ -198,7 +206,12 @@ class Tracer:
     reproducible). A trace that loses the toss still executes all its
     instrumentation; its spans are dropped at finish UNLESS they ran longer
     than ``slow_threshold_s`` (tail retention).
+
+    The span lane (``lane_span``, ``lane_add``) keeps ``lane_capacity``
+    records in a ring apart from the sampled spans', and totals per name.
     """
+
+    lane_capacity = 1 << 16
 
     def __init__(self, *, capacity: int = 8192, sample: float = 1.0,
                  slow_threshold_s: float = 0.25, max_pending: int = 4096):
@@ -216,6 +229,11 @@ class Tracer:
         self.dropped_unsampled = 0
         self.kept_slow = 0              # unsampled spans retained by tail rule
         self.pending_evicted = 0
+        # the span lane: a ring of its own, and totals that never wrap
+        self._lane_lock = threading.Lock()
+        self._lane: Deque[Tuple[str, float, float, Tuple[Any, ...]]] = \
+            deque(maxlen=self.lane_capacity)
+        self._lane_totals: Dict[str, List[Any]] = {}
 
     # -- sampling ----------------------------------------------------------
 
@@ -372,6 +390,44 @@ class Tracer:
                 self.kept_slow += 1
             self.kept += 1
             self._ring.append(span.as_dict())
+
+    # -- span lane (high-rate spans: no ids, no sampling) -------------------
+
+    def lane_span(self, name: str, start: float, end: float,
+                  attrs: Tuple[Any, ...] = ()) -> None:
+        """Record one finished span of the lane: ``(name, start, end,
+        attrs)`` (``time.monotonic`` seconds, a small tuple) into the lane's
+        ring, and one count and ``end - start`` seconds into ``name``'s
+        totals. An append and two adds under the lane's lock: cheap enough
+        for every decode step."""
+        with self._lane_lock:
+            self._lane.append((name, start, end, attrs))
+            self._lane_count(name, end - start)
+
+    def lane_add(self, name: str, seconds: float) -> None:
+        """Add one count and ``seconds`` to ``name``'s totals, with no
+        record in the ring: a duration measured on another clock (the
+        device's, from CUDA events)."""
+        with self._lane_lock:
+            self._lane_count(name, seconds)
+
+    def _lane_count(self, name: str, seconds: float) -> None:
+        # the caller holds _lane_lock
+        total = self._lane_totals.setdefault(name, [0, 0.0])
+        total[0] += 1
+        total[1] += seconds
+
+    def lane_records(self) -> List[Tuple[str, float, float, Tuple[Any, ...]]]:
+        """The lane's ring, oldest first: its last ``lane_capacity``
+        spans."""
+        with self._lane_lock:
+            return list(self._lane)
+
+    def lane_totals(self) -> Dict[str, Tuple[int, float]]:
+        """{name: (count, seconds)} over every span and duration the lane
+        was given, ring wraps included."""
+        with self._lane_lock:
+            return {k: (v[0], v[1]) for k, v in self._lane_totals.items()}
 
     # -- export ------------------------------------------------------------
 

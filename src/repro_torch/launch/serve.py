@@ -6,8 +6,7 @@ generation over a model, on the card unless ``--device cpu``.
 
 Requests are spread across tenants through the batcher's per-tenant WRR
 slot scheduler; the report includes per-tenant TTFT and the fused
-engine's admission counters (``full_cache_copies`` stays 0: admission
-writes freed slots in place instead of rescattering the whole KV cache).
+engine's counters (steps, admit calls, host syncs).
 Weights are random, drawn from ``--seed``, stored in bf16 where the
 reference casts them to the compute dtype. As in the reference, no frames
 or patches go in: seamless's decoder cross-attends to a zero cross cache,
@@ -68,8 +67,7 @@ def main(argv=None) -> int:
           f"{wall:.2f}s ({toks/wall:.1f} tok/s); "
           f"p50 latency {lats[len(lats)//2]:.2f}s; "
           f"steps {c['steps']}, admit_calls {c['admit_calls']}, "
-          f"host_syncs {c['host_syncs']}, "
-          f"full_cache_copies {c['full_cache_copies']}")
+          f"host_syncs {c['host_syncs']}")
     by_tenant = {}
     for r in done:
         by_tenant.setdefault(r.tenant, []).append(

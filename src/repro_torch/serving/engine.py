@@ -44,6 +44,18 @@ device-to-host transfer, so ``host_syncs == admit_calls + steps``.
 ``ContinuousBatcher`` fronts one engine with a thread-safe per-tenant WRR
 :class:`~repro_torch.serving.scheduler.SlotScheduler`; ``generate`` routes
 batch generation through the same engine path.
+
+Tracing: an engine's ``tracer`` (a :class:`~repro_torch.core.trace.Tracer`,
+None by default, and settable at any time) receives the phases of every
+call on its span lane: ``engine.step.launch`` / ``.wait`` / ``.book``,
+and per bucket group ``engine.admit.stage`` / ``.launch`` / ``.wait`` /
+``.book`` / ``.capture``. On the card it also gets the device's side,
+from timing CUDA events around each call's device work:
+``engine.step.device``, ``engine.admit.device`` and ``engine.step.gap``
+(the device idle from one step graph's end to the next one's start, for
+consecutive steps with no admit call between). With ``tracer`` None no
+event is created or recorded and no span is recorded: the cost is the
+``is not None`` checks.
 """
 from __future__ import annotations
 
@@ -177,10 +189,18 @@ class GenerationEngine:
         self.steps = 0
         self.admit_calls = 0            # fused admit invocations
         self.admitted = 0               # requests admitted
-        self.full_cache_copies = 0      # whole-cache copies: stays 0
         self.host_syncs = 0             # device->host transfers
-        self._admit_replays = 0         # admit calls that replayed a graph
+        self.admit_replays = 0          # admit calls that replayed a graph
+        self.admit_captures = 0         # admission graphs captured (lazily)
+        self.capture_s = 0.0            # seconds spent in those captures
         self.captures_skipped = 0       # admission captures left for later
+        # tracing (module docstring): the span lane's owner, and the timing
+        # events, made at the first traced call on the card
+        self.tracer: Optional[Any] = None
+        self._timed = on_card
+        self._events: Optional[List[Any]] = None
+        self._event_at = 0
+        self._last_step_end: Optional[Tuple[Any, int, int]] = None
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._graph_launches: Dict[Any, int] = {}
         # (rows, bucket) -> (static inputs, graph, recorded launches)
@@ -328,6 +348,7 @@ class GenerationEngine:
         if not CAPTURE_LOCK.acquire(blocking=False):
             self.captures_skipped += 1
             return
+        t0 = time.monotonic()
         try:
             inputs = torch.zeros((k * pad_len + 3 * k,), dtype=torch.int32,
                                  device=self.device)
@@ -337,6 +358,38 @@ class GenerationEngine:
         finally:
             CAPTURE_LOCK.release()
         self._admit_graphs[(k, pad_len)] = (inputs, graph, launches)
+        self.admit_captures += 1
+        self.capture_s += time.monotonic() - t0
+
+    # -- device clock (traced engines on the card) ---------------------------
+
+    def _timing_start(self) -> Optional[Tuple[Any, Any]]:
+        """The next pair of this engine's timing events, its start
+        recorded on the current stream; None off the card. Four events,
+        reused in turn, so that a step's end event is intact when the next
+        step's start is recorded whatever came between."""
+        if not self._timed:
+            return None
+        if self._events is None:
+            self._events = [torch.cuda.Event(enable_timing=True)
+                            for _ in range(4)]
+        i = self._event_at
+        self._event_at = (i + 2) % 4
+        pair = self._events[i], self._events[i + 1]
+        pair[0].record()
+        return pair
+
+    def _read_step_clock(self, tr: Any, ev: Tuple[Any, Any]) -> None:
+        """After a step's sync: its graph's device time, and the device's
+        idle time since the previous step's graph if that step was the one
+        before and no admit call came between."""
+        start, end = ev
+        tr.lane_add("engine.step.device", start.elapsed_time(end) / 1e3)
+        last = self._last_step_end
+        if (last is not None and last[1] == self.steps - 1
+                and last[2] == self.admit_calls):
+            tr.lane_add("engine.step.gap", last[0].elapsed_time(start) / 1e3)
+        self._last_step_end = (end, self.steps, self.admit_calls)
 
     # -- admission ---------------------------------------------------------
 
@@ -359,6 +412,7 @@ class GenerationEngine:
                 raise ValueError(
                     f"prompt length {n} >= engine max_len {self.max_len}")
             groups.setdefault(self._bucket(n), []).append(r)
+        tr = self.tracer
         for pad_len, group in sorted(groups.items()):
             k = len(group)
             idx = np.asarray(free[:k], np.int32)
@@ -380,20 +434,39 @@ class GenerationEngine:
             graphed = (self._admit_graphs.get((k, pad_len))
                        if self._graph_admit else None)
             if graphed is None:
-                first = self._admit_eagerly(host.to(self.device), k, pad_len)
+                buf = host.to(self.device)
             else:
                 inputs, graph, launches = graphed
                 inputs.copy_(host)
+            if tr is not None:
+                t_launch = time.monotonic()
+                tr.lane_span("engine.admit.stage", t_admit, t_launch)
+                # on the current stream: an eager call on the capture
+                # stream starts after the start event and the end event
+                # waits for it
+                ev = self._timing_start()
+            if graphed is None:
+                first = self._admit_eagerly(buf, k, pad_len)
+            else:
                 graph.replay()
                 for kernel, count in launches.items():
                     kernel.add_launches(count)
-                self._admit_replays += 1
+                self.admit_replays += 1
                 first = self._first[:k]
+            if tr is not None:
+                if ev is not None:
+                    ev[1].record()
+                t_wait = time.monotonic()
+                tr.lane_span("engine.admit.launch", t_launch, t_wait,
+                             (k, pad_len,
+                              "eager" if graphed is None else "graphed"))
             first_np = first.cpu().numpy()
             self.host_syncs += 1
             self.admit_calls += 1
             self.admitted += k
             now = time.monotonic()
+            if tr is not None:
+                tr.lane_span("engine.admit.wait", t_wait, now)
             for j, r in enumerate(group):
                 slot = int(idx[j])
                 r.tokens.append(int(first_np[j]))
@@ -405,8 +478,20 @@ class GenerationEngine:
                 else:
                     self.slot_req[slot] = r
                     self.lengths[slot] = int(true_len[j])
+            if tr is not None:
+                tr.lane_span("engine.admit.book", now, time.monotonic())
+                if ev is not None:
+                    tr.lane_add("engine.admit.device",
+                                ev[0].elapsed_time(ev[1]) / 1e3)
             if graphed is None and self._graph_admit:
-                self._capture_admit(k, pad_len)
+                if tr is None:
+                    self._capture_admit(k, pad_len)
+                else:
+                    skipped = self.captures_skipped
+                    t0 = time.monotonic()
+                    self._capture_admit(k, pad_len)
+                    tr.lane_span("engine.admit.capture", t0, time.monotonic(),
+                                 (self.captures_skipped > skipped,))
         return take
 
     def admit(self, req: Request) -> bool:
@@ -420,6 +505,10 @@ class GenerationEngine:
         One host sync per step regardless of slot count."""
         if not any(r is not None for r in self.slot_req):
             return []
+        tr = self.tracer
+        if tr is not None:
+            t0 = time.monotonic()
+            ev = self._timing_start()
         if self._graph is None:
             out = self._step()
         else:
@@ -427,10 +516,17 @@ class GenerationEngine:
             for kernel, n in self._graph_launches.items():
                 kernel.add_launches(n)
             out = self._out
+        if tr is not None:
+            if ev is not None:
+                ev[1].record()
+            t_wait = time.monotonic()
+            tr.lane_span("engine.step.launch", t0, t_wait)
         toks_np, done_np = out.cpu().numpy()
         self.host_syncs += 1
         self.steps += 1
         now = time.monotonic()
+        if tr is not None:
+            tr.lane_span("engine.step.wait", t_wait, now)
         finished: List[Request] = []
         for i, req in enumerate(self.slot_req):
             if req is None:
@@ -443,6 +539,10 @@ class GenerationEngine:
                 finished.append(req)
                 self.slot_req[i] = None
                 self.lengths[i] = 0
+        if tr is not None:
+            tr.lane_span("engine.step.book", now, time.monotonic())
+            if ev is not None:
+                self._read_step_clock(tr, ev)
         return finished
 
     # -- introspection -----------------------------------------------------
@@ -450,11 +550,13 @@ class GenerationEngine:
     def active_slots(self) -> int:
         return sum(1 for r in self.slot_req if r is not None)
 
-    def counters(self) -> Dict[str, int]:
+    def counters(self) -> Dict[str, float]:
         return {"steps": self.steps, "admit_calls": self.admit_calls,
                 "admitted": self.admitted,
-                "full_cache_copies": self.full_cache_copies,
                 "host_syncs": self.host_syncs,
+                "admit_replays": self.admit_replays,
+                "admit_captures": self.admit_captures,
+                "capture_s": self.capture_s,
                 "captures_skipped": self.captures_skipped}
 
 

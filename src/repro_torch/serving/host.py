@@ -124,21 +124,35 @@ class EngineReplica:
     def _drive(self) -> None:
         engine = self.engine
         while True:
+            # the engine's span lane, if it is traced: this loop's turns
+            # go there as replica.take / replica.finish / replica.park
+            tr = getattr(engine, "tracer", None)
             stopping = self._stop.is_set()
             if not stopping:
                 free = len(engine.free_slots())
                 if free:
-                    for req in engine.admit_many(self.scheduler.take(free)):
-                        if req.done:
-                            self.on_finished(req)
+                    reqs = _spanned(tr, "replica.take", self.scheduler.take,
+                                    free)
+                    self._report(tr, [req for req in engine.admit_many(reqs)
+                                      if req.done])
             if engine.active_slots():
-                for req in engine.step():
-                    self.on_finished(req)
+                self._report(tr, engine.step())
                 continue
             if stopping:
                 return                      # drained
             # idle: park until work arrives (dedicated thread, not a task)
-            self.scheduler.wait_pending(timeout=0.05)
+            _spanned(tr, "replica.park", self.scheduler.wait_pending, 0.05)
+
+    def _report(self, tr: Optional[Any], finished: List[Request]) -> None:
+        """Hand the finished requests to the fleet (registry, meter, SLO
+        and tracer work, on this drive thread)."""
+        if not finished:
+            return
+        t0 = time.monotonic() if tr is not None else 0.0
+        for req in finished:
+            self.on_finished(req)
+        if tr is not None:
+            tr.lane_span("replica.finish", t0, time.monotonic())
 
 
 class ServingFleet(Controller):
@@ -238,9 +252,6 @@ class ServingFleet(Controller):
         m.inc("serving_tokens_total", float(len(req.tokens)),
               tenant=req.tenant)
         m.inc("serving_tokens_total", float(len(req.tokens)))
-        m.observe("serving_request_latency_seconds",
-                  max(0.0, req.finished_at - req.submitted_at),
-                  tenant=req.tenant)
         um = self.meter
         if um is not None:
             # slot-seconds: wall time the request held an engine slot
@@ -458,6 +469,18 @@ class ServingFleet(Controller):
             rep.stop()
         for rep in reps:
             rep.join(timeout=30.0)
+
+
+def _spanned(tr: Optional[Any], name: str, fn: Callable[..., Any],
+             *args: Any) -> Any:
+    """``fn(*args)``, recorded as span ``name`` on ``tr``'s lane when
+    ``tr`` is not None."""
+    if tr is None:
+        return fn(*args)
+    t0 = time.monotonic()
+    out = fn(*args)
+    tr.lane_span(name, t0, time.monotonic())
+    return out
 
 
 def _unit_index(name: str) -> Optional[int]:

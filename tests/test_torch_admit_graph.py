@@ -244,7 +244,7 @@ def test_graph_admission_gives_jax_tokens_and_slot_state(
         _assert_slot_state(eng, jeng)
         assert [r.tokens for r in reqs] == [r.tokens for r in jreqs]
         assert set(eng._admit_graphs) == shapes
-        assert eng._admit_replays == 2 * rnd
+        assert eng.admit_replays == 2 * rnd
         while eng.active_slots():
             eng.step()
         while jeng.active_slots():
@@ -254,7 +254,7 @@ def test_graph_admission_gives_jax_tokens_and_slot_state(
     assert len(stand_in_capture) == 2
     assert sorted(g.replays for g in stand_in_capture) == [1, 1]
     assert eng.host_syncs == eng.admit_calls + eng.steps
-    assert eng.admit_calls == 4 and eng.full_cache_copies == 0
+    assert eng.admit_calls == 4
 
 
 def _hold_capture_lock(work=lambda: None):
@@ -314,9 +314,9 @@ def test_admission_capture_never_waits_on_another_thread(stand_in_capture):
     assert not holder.is_alive() and not errors
     assert _drive_round(eng, rounds[1], 10) == want[1]
     assert set(eng._admit_graphs) == {(2, 8), (2, 16)}
-    assert eng._admit_replays == 0
+    assert eng.admit_replays == 0
     assert _drive_round(eng, rounds[2], 20) == want[2]
-    assert eng._admit_replays == 2
+    assert eng.admit_replays == 2
     assert eng.counters()["captures_skipped"] == 2
     assert eng.host_syncs == eng.admit_calls + eng.steps
 
@@ -335,7 +335,7 @@ def test_recurrent_engines_build_no_admit_graph(stand_in_capture, arch):
     for rnd in range(2):
         _admit_and_drain(eng, Request, _round(cfg.vocab, seed=rnd), 10 * rnd)
     assert stand_in_capture == [] and eng._admit_graphs == {}
-    assert eng._admit_replays == 0 and eng.admit_calls == 8
+    assert eng.admit_replays == 0 and eng.admit_calls == 8
     for arch_ in ATTN:
         assert not _engine(_cfg(arch_), init_params(
             _cfg(arch_), generator=torch.Generator().manual_seed(1),
@@ -478,12 +478,12 @@ def test_graphed_admission_matches_eager_admission(cuda, arch):
         eng._graph_admit = graph_admit
         got[graph_admit] = []
         for r, prompts in enumerate(rounds):
-            replays = eng._admit_replays
+            replays = eng.admit_replays
             tokens, launches, (admits, steps) = _counted_round(
                 eng, prompts, 10 * r)
             assert launches == (attn * admits + cross * (admits + steps),
                                 attn * steps)
-            assert eng._admit_replays - replays == (
+            assert eng.admit_replays - replays == (
                 admits if graph_admit and r == 1 else 0)
             got[graph_admit].append((tokens, launches))
         assert len(eng._admit_graphs) == (2 if graph_admit else 0)
@@ -533,7 +533,7 @@ def test_recurrent_engines_admit_eagerly_on_the_card(cuda, arch):
     assert eng._graph is not None and not eng._graph_admit
     for r in range(2):
         _counted_round(eng, _round(cfg.vocab, seed=r), 10 * r)
-    assert eng._admit_graphs == {} and eng._admit_replays == 0
+    assert eng._admit_graphs == {} and eng.admit_replays == 0
 
 
 @pytest.mark.cuda
@@ -571,7 +571,7 @@ def test_live_engine_keeps_stepping_while_another_builds(cuda):
     assert _drive_round(live, rounds[1], 10) == want[1]
     assert set(live._admit_graphs) == {(2, 8), (2, 16)}
     assert _drive_round(live, rounds[2], 20) == want[2]
-    assert live._admit_replays == 2 and live.captures_skipped == 2
+    assert live.admit_replays == 2 and live.captures_skipped == 2
 
 
 @pytest.mark.cuda
@@ -632,4 +632,4 @@ def test_two_graphed_engines_built_at_once_on_two_threads(cuda):
             assert engine._graph is not None
             assert engine.admit_calls == 4
             assert (len(engine._admit_graphs) + engine.captures_skipped
-                    == engine.admit_calls - engine._admit_replays)
+                    == engine.admit_calls - engine.admit_replays)

@@ -393,7 +393,7 @@ def test_encdec_graphed_engine_matches_eager(cuda):
             assert fa_kernel.KERNEL.launches == attn * (2 * calls + steps)
         assert _static_buffers(eng) == before
         assert runs[0] == runs[1]
-        assert (eng._admit_replays > 0) == graphed
+        assert (eng.admit_replays > 0) == graphed
         tokens[graphed] = runs[0]
     assert tokens[True] == tokens[False]
     assert [len(t) for t in tokens[True]] == max_new
