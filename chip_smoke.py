@@ -49,12 +49,14 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    (``sharded_decode {...}``, ``sharded_context {...}``);
 4. training, on attention-only layers: the prefill kernel's forward with
    its log-sum-exp against ``_mha_torch``'s (out, lse) at qwen2-7b's
-   train_4k (B 2, S 4096), at gemma2-9b's heads (B 1, S 5000, D 256,
-   window 4096 binding, softcap 50) and in fp32; ``MhaFunction``'s
-   dq/dk/dv through the kernel against the same backward on the plain
-   forward, and against "ref" autograd at B 1, S 300; the forward's time
-   with and without the lse, the PyTorch backward's, and SDPA's forward
-   plus backward beside them (``train_kernel {...}``); then the trace
+   and internvl2-2b's train_4k (B 2, S 4096), at gemma2-9b's heads (B 1,
+   S 5000, D 256, window 4096 binding, softcap 50), at seamless's
+   non-causal encoder and cross shapes and in fp32; ``MhaFunction``'s
+   dq/dk/dv through the kernels (the forward and ``flash_attention_bwd``)
+   against the plain forward and ``_mha_bwd_torch``, and against "ref"
+   autograd at B 1, S 300; the forward's time with and without the lse,
+   the backward kernel's and the PyTorch backward's, and SDPA's backward
+   and forward plus backward beside them (``train_kernel {...}``); then the trace
    readers that the training profiles use, held against the profiler's
    ``key_averages`` on one short window (``trace_readers {...}``). The scans'
    training form at their training shapes (rwkv6 B 2, S 4096, H 64, D 64
@@ -83,7 +85,7 @@ Needs one NVIDIA H100 (any CUDA card with sm_90a) and the CUDA toolkit's
    too, and seamless runs three attentions a decoder layer and encoder
    layer pair), step ms, tokens/s, share of the
    bf16 peak, peak memory (``train_step {...}``) and one profiled step
-   with the PyTorch backwards' shares (``train_profile {...}``). Then
+   with the backwards' shares (``train_profile {...}``). Then
    ``examples/train_tenant_job_torch.py``'s ``100m`` preset through a live
    ``VirtualClusterFramework``: 3 units of 5 steps, each saving a
    checkpoint, every unit ``Ready``, the last checkpoint restored bit for
@@ -1728,7 +1730,7 @@ def expected_launches(cfg, counters):
     cross = attn if cfg.is_encdec else 0
     admits, steps = counters["admit_calls"], counters["steps"]
     return {"flash_attention": attn * admits + cross * (admits + steps),
-            "flash_decode": attn * steps,
+            "flash_attention_bwd": 0, "flash_decode": attn * steps,
             "rwkv6_scan": layers["r"] * admits,
             "mamba_scan": layers["m"] * admits, "grouped_gemm": 0}
 
@@ -2286,8 +2288,8 @@ def trace_readers_phase(gen):
     private Kineto events and redo ``key_averages``' attribution; hold them
     against the public ``key_averages`` on one short profiled window, so
     that a torch whose events or attribution differ fails here and not in
-    the training profiles' shares: ``MhaFunction``'s forward through the
-    kernel and its PyTorch backward (B 1, S 1024, H 8, D 64, bf16, causal).
+    the training profiles' shares: ``MhaFunction``'s forward and backward
+    through the kernels (B 1, S 1024, H 8, D 64, bf16, causal).
     Device kernels: the same count and total; the backward node: the same
     device time. Each event may differ by 1 us (a torch that rounds its
     events' times to whole microseconds)."""
@@ -2376,13 +2378,20 @@ def profile_scan_admit(cfg, engine, rng, kernel, old, match):
 
 
 TRAIN_SHAPES = [
-    # label, B, S, H, KV, D, window, softcap, dtype, tolerance
-    ("qwen2-7b train_4k B2 S4096 H28 KV4 D128 bf16 causal", 2, 4096, 28, 4,
-     128, 0, 0.0, torch.bfloat16, 2e-2),
+    # label, B, S, T, H, KV, D, causal, window, softcap, dtype, tolerance
+    ("qwen2-7b train_4k B2 S4096 H28 KV4 D128 bf16 causal", 2, 4096, 4096,
+     28, 4, 128, True, 0, 0.0, torch.bfloat16, 2e-2),
+    ("internvl2-2b train_4k B2 S4096 H16 KV8 D128 bf16 causal", 2, 4096,
+     4096, 16, 8, 128, True, 0, 0.0, torch.bfloat16, 2e-2),
     ("gemma2-9b heads B1 S5000 H16 KV8 D256 bf16 causal window 4096 "
-     "softcap 50", 1, 5000, 16, 8, 256, 4096, 50.0, torch.bfloat16, 2e-2),
-    ("qwen2-7b heads B1 S1024 H28 KV4 D128 fp32 causal", 1, 1024, 28, 4, 128,
-     0, 0.0, torch.float32, 2e-5),
+     "softcap 50", 1, 5000, 5000, 16, 8, 256, True, 4096, 50.0,
+     torch.bfloat16, 2e-2),
+    ("seamless encoder heads B2 S1024 H16 KV16 D64 bf16 non-causal", 2, 1024,
+     1024, 16, 16, 64, False, 0, 0.0, torch.bfloat16, 2e-2),
+    ("seamless cross heads B2 S512 T1024 H16 KV16 D64 bf16 non-causal", 2,
+     512, 1024, 16, 16, 64, False, 0, 0.0, torch.bfloat16, 2e-2),
+    ("qwen2-7b heads B1 S1024 H28 KV4 D128 fp32 causal", 1, 1024, 1024, 28, 4,
+     128, True, 0, 0.0, torch.float32, 2e-5),
 ]
 LSE_TOL = 1e-4   # fp32 statistics on both sides: summation order, SFU exp2
 GRAD_TOL = 2e-2  # of the gradient's largest magnitude: see check_grad
@@ -2403,39 +2412,46 @@ def check_grad(name, got, want, tol=GRAD_TOL):
     return err / scale
 
 
-def attn_train_bound(B, S, H, D, window, causal=True):
+def attn_train_bound(B, S, T, H, D, window, causal=True):
     """Forward: 4 D FLOP per attended (q, k) pair and head; backward: 10 D
-    (recomputed scores, dP, dQ, dK, dV), 2.5x the forward. Both bound by
-    the operations at training shapes."""
-    fwd = 4 * D * attn_pairs(S, S, causal, window) * B * H
-    return fwd, 2.5 * fwd
+    (recomputed scores, dP, dQ, dK, dV), 2.5x the forward; the kernel's two
+    passes recompute the scores and dP twice, 14 D (3.5x). All bound by the
+    operations at training shapes."""
+    fwd = 4 * D * attn_pairs(S, T, causal, window) * B * H
+    return fwd, 2.5 * fwd, 3.5 * fwd
 
 
 def train_kernel_phase(gen):
     """Attention's training form on the card: the kernel's forward with
     its lse (``return_lse``) against ``_mha_torch``'s (out, lse) at the
-    training shapes (``TRAIN_SHAPES``: qwen2-7b's train_4k, gemma2-9b's
-    heads at S 5000 where its window binds, and fp32), then
-    ``MhaFunction``'s dq/dk/dv with the kernel's forward against the same
-    backward on the plain forward (and, at B 1, S 300, against "ref"
-    autograd), then times: the kernel's forward with and without the lse,
-    the backward's device time, forward plus backward against SDPA's
-    (qwen2; for gemma2's softcap and window, ``flex_attention``'s), each
-    beside its bound. Lines
-    ``train_kernel {...}``; returns the qwen2 row."""
+    training shapes (``TRAIN_SHAPES``: qwen2-7b's and internvl2-2b's
+    train_4k, gemma2-9b's heads at S 5000 where its window binds,
+    seamless's non-causal encoder and cross shapes, and fp32), then
+    ``MhaFunction``'s dq/dk/dv through the kernels (forward and
+    ``flash_attention_bwd``) against the plain forward and
+    ``_mha_bwd_torch``, then times: the kernel's forward with and without
+    the lse, the backward kernel's and the plain backward's device time,
+    forward plus backward, against SDPA's backward and forward plus
+    backward (for gemma2's softcap and window, ``flex_attention``'s), each
+    beside its bound (``bwd_bound_ms``: five products; ``bwd7_bound_ms``:
+    the kernel's seven). Lines ``train_kernel {...}``; returns the first
+    (qwen2) row."""
     from repro_torch.kernels.flash_attention.ops import (MhaFunction,
                                                          _mha_bwd_torch,
                                                          _mha_torch)
     rows = []
-    for label, B, S, H, KV, D, window, softcap, dtype, tol in TRAIN_SHAPES:
+    for (label, B, S, T, H, KV, D, causal, window, softcap, dtype,
+         tol) in TRAIN_SHAPES:
         q = torch.randn((B, S, H, D), generator=gen, device="cuda").to(dtype)
-        k, v = (torch.randn((B, S, KV, D), generator=gen,
+        k, v = (torch.randn((B, T, KV, D), generator=gen,
                             device="cuda").to(dtype) for _ in range(2))
         dout = torch.randn((B, S, H, D), generator=gen,
                            device="cuda").to(dtype)
-        kw = dict(causal=True, window=window, softcap=softcap, scale=None,
-                  q_offset=0, q_chunk=1024, kv_chunk=1024)
-        fkw = dict(causal=True, window=window, softcap=softcap)
+        qoff = T - S if causal else 0
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=None,
+                  q_offset=qoff, q_chunk=1024, kv_chunk=1024)
+        fkw = dict(causal=causal, window=window, softcap=softcap,
+                   q_offset=qoff)
         out, lse = fa_kernel.flash_attention(q, k, v, return_lse=True, **fkw)
         ref, ref_lse = _mha_torch(q, k, v, **kw)
         sync()
@@ -2444,8 +2460,8 @@ def train_kernel_phase(gen):
         lse_err = max_err(lse.view(B, S, KV, H // KV), ref_lse)
         check(f"flash_attention fwd {label}", err, tol)
         check(f"flash_attention lse {label}", lse_err, LSE_TOL)
-        # gradients: the same backward on the kernel's forward and on the
-        # plain forward; only out and lse differ (by an output ulp)
+        # gradients: the kernels' forward and backward against the plain
+        # forward and backward
         grads = {}
         for impl in ("cuda", "torch"):
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
@@ -2454,14 +2470,15 @@ def train_kernel_phase(gen):
             del o, leaves
         for name, a, b in zip(("dq", "dk", "dv"), grads["cuda"],
                               grads["torch"]):
-            check_grad(f"MhaFunction {name} cuda vs torch forward {label}",
-                       a, b)
+            check_grad(f"MhaFunction {name} cuda vs torch {label}", a, b)
         del grads, ref, ref_lse
-        fwd_flops, bwd_flops = attn_train_bound(B, S, H, D, window)
+        fwd_flops, bwd_flops, bwd7_flops = attn_train_bound(
+            B, S, T, H, D, window, causal)
         row = {"shape": label, "max_abs_err": err, "lse_max_abs_err": lse_err,
                "tolerance": tol, "lse_tolerance": LSE_TOL,
                "fwd_bound_ms": fwd_flops / PEAK_FLOPS["bfloat16"] * 1e3,
                "bwd_bound_ms": bwd_flops / PEAK_FLOPS["bfloat16"] * 1e3,
+               "bwd7_bound_ms": bwd7_flops / PEAK_FLOPS["bfloat16"] * 1e3,
                "fwd_gflop": fwd_flops / 1e9}
         if dtype == torch.bfloat16:
             row["fwd_ms"] = graph_ms(lambda: fa_kernel.flash_attention(
@@ -2473,6 +2490,9 @@ def train_kernel_phase(gen):
             lse4 = lse.view(B, S, KV, H // KV)
             row["bwd_ms"] = graph_ms(lambda: _mha_bwd_torch(
                 q, k, v, out, lse4, dout, **kw), iters=2, replays=2)
+            row["bwd_kernel_ms"] = graph_ms(
+                lambda: fa_kernel.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                      **fkw))
             leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
 
             def mine():
@@ -2480,23 +2500,29 @@ def train_kernel_phase(gen):
                 torch.autograd.grad(o, leaves, dout)
             row["fwd_bwd_ms"] = time_ms(mine, iters=3, warmup=1)
             row["sdpa_fwd_ms"] = row["sdpa_fwd_bwd_ms"] = None
+            row["sdpa_bwd_ms"] = None
             if softcap == 0.0 and window == 0:
                 qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                               for t in (q, k, v))
                 dt = dout.transpose(1, 2)
                 row["sdpa_fwd_ms"] = graph_ms(
                     lambda: F.scaled_dot_product_attention(
-                        qt.detach(), kt.detach(), vt.detach(), is_causal=True,
-                        enable_gqa=True))
+                        qt.detach(), kt.detach(), vt.detach(),
+                        is_causal=causal, enable_gqa=True))
 
                 def sdpa():
                     o = F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True, enable_gqa=True)
+                        qt, kt, vt, is_causal=causal, enable_gqa=True)
                     torch.autograd.grad(o, (qt, kt, vt), dt)
                 row["sdpa_fwd_bwd_ms"] = time_ms(sdpa, iters=3, warmup=1)
-                del qt, kt, vt
+                o_sdpa = F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
+                row["sdpa_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+                    o_sdpa, (qt, kt, vt), dt, retain_graph=True), iters=5,
+                    warmup=1)
+                del qt, kt, vt, o_sdpa
             else:         # SDPA has no softcap: flex_attention's fwd + bwd
-                call = flex_attention_call(B, S, S, H, KV, D, causal=True,
+                call = flex_attention_call(B, S, T, H, KV, D, causal=causal,
                                            window=window, softcap=softcap)
                 row["flex_fwd_ms"], row["flex_note"] = flex_library_ms(
                     call, (q, k, v), out)
@@ -2687,7 +2713,8 @@ def train_phase(cfg, kernels, cut, steps=6, microbatches=2, batch=4,
     step (the main path, its counts read after the steps: attention twice
     a layer and microbatch, forward and remat recompute; a scan as often,
     one launch a group of 16 chunks), then one profiled step with the
-    shares of attention's and the scans' PyTorch backwards. Returns the
+    shares of attention's backward (a kernel) and the scans' (PyTorch).
+    Returns the
     path's launches; with ``record`` (a dict) the ``train_step`` row goes
     into it."""
     from repro_torch.data import DataConfig, SyntheticTokens
@@ -2773,6 +2800,7 @@ def train_phase(cfg, kernels, cut, steps=6, microbatches=2, batch=4,
     calls = microbatches * 2       # a layer's forward and remat recompute
     groups = len(group_bounds(seq, 16))
     want = {"flash_attention": (attn_layers + bidir) * calls,
+            "flash_attention_bwd": (attn_layers + bidir) * microbatches,
             "flash_decode": 0,
             "rwkv6_scan": layers["r"] * calls * groups,
             "mamba_scan": layers["m"] * calls * groups, "grouped_gemm": 0}
@@ -2781,11 +2809,11 @@ def train_phase(cfg, kernels, cut, steps=6, microbatches=2, batch=4,
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
     assert per_step == want, (per_step, want)
     ms = float(np.median(step_ms[1:]))
-    attn_fwd, attn_bwd = attn_train_bound(batch // microbatches, seq,
-                                          cfg.n_heads, cfg.head_dim, 0)
-    bi_fwd, bi_bwd = attn_train_bound(batch // microbatches, seq,
-                                      cfg.n_heads, cfg.head_dim, 0,
-                                      causal=False)
+    attn_fwd, attn_bwd, _ = attn_train_bound(batch // microbatches, seq, seq,
+                                             cfg.n_heads, cfg.head_dim, 0)
+    bi_fwd, bi_bwd, _ = attn_train_bound(batch // microbatches, seq, seq,
+                                         cfg.n_heads, cfg.head_dim, 0,
+                                         causal=False)
     flops = (6 * n_matmul * tokens      # the scans' fp32 work: < 0.1% of it
              + (attn_fwd + attn_bwd) * attn_layers * microbatches
              + (bi_fwd + bi_bwd) * bidir * microbatches)
@@ -2803,8 +2831,8 @@ def train_phase(cfg, kernels, cut, steps=6, microbatches=2, batch=4,
         record.update(row)
 
     # one profiled step: device busy share, attention forward (kernel) and
-    # the PyTorch backwards of attention and the scans (their Functions'
-    # backward nodes, with every kernel they launch)
+    # the backwards of attention and the scans (their Functions' backward
+    # nodes, with every kernel they launch)
     from torch.profiler import ProfilerActivity, profile
     sync()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2831,8 +2859,8 @@ def train_phase(cfg, kernels, cut, steps=6, microbatches=2, batch=4,
         if kernel_ms or bwd_ms:
             prof_row.update({f"{label}_fwd_kernel_ms": kernel_ms,
                              f"{label}_fwd_kernel_share": kernel_ms / busy,
-                             f"{label}_bwd_torch_ms": bwd_ms,
-                             f"{label}_bwd_torch_share": bwd_ms / busy})
+                             f"{label}_bwd_ms": bwd_ms,
+                             f"{label}_bwd_share": bwd_ms / busy})
     prof_row["trace_reading_s"] = time.monotonic() - t_trace
     print("train_profile " + json.dumps(prof_row))
     for name, (n, t) in sorted(per_name.items(), key=lambda kv: -kv[1][1])[:8]:
@@ -3347,8 +3375,8 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}")
 
-    kernels = [fa_kernel.KERNEL, fd_kernel.KERNEL, rs_kernel.KERNEL,
-               ms_kernel.KERNEL, gg_kernel.KERNEL]
+    kernels = [fa_kernel.KERNEL, fa_kernel.BWD_KERNEL, fd_kernel.KERNEL,
+               rs_kernel.KERNEL, ms_kernel.KERNEL, gg_kernel.KERNEL]
     t0 = time.monotonic()
     build_all(kernels)
     print(f"build: {len(kernels)} kernels in {time.monotonic() - t0:.1f} s")

@@ -16,9 +16,10 @@ Training (grad mode on and an input that needs a gradient) goes through
 ``MhaFunction``, the port of the reference's custom VJP
 (``repro.kernels.flash_attention.ops._mha_xla_vjp``): the forward is the
 chosen impl's and also gives each row's log-sum-exp; it saves only (q, k,
-v, out, lse), and the backward (``_mha_bwd_torch``, the port of
-``_mha_bwd_impl``, XLA code in the reference, not Pallas) recomputes p
-tile by tile, in PyTorch on either device.
+v, out, lse), and the backward, the port of ``_mha_bwd_impl`` (XLA code in
+the reference, not Pallas), recomputes p tile by tile: "cuda" launches the
+hand-written backward (``kernel.flash_attention_bwd``), "torch" runs
+``_mha_bwd_torch``, the CPU route and the oracle the kernel is held to.
 """
 from __future__ import annotations
 
@@ -225,20 +226,29 @@ class MhaFunction(torch.autograd.Function):
     """Attention with the reference's flash-style VJP: the forward is
     ``impl``'s ("cuda": the kernel, which also writes the lse; "torch":
     ``_mha_torch``) and saves (q, k, v, out, lse); the backward is
-    ``_mha_bwd_torch`` on either device. ``kw`` holds the keyword
-    arguments of ``mha`` other than ``impl``."""
+    ``impl``'s too ("cuda": ``kernel.flash_attention_bwd``, with ``dout``
+    made contiguous, as autograd may hand it in any layout; "torch":
+    ``_mha_bwd_torch``). ``kw`` holds the keyword arguments of ``mha``
+    other than ``impl``."""
 
     @staticmethod
     def forward(ctx, q, k, v, impl, kw):
         out, lse = _mha_fwd(q, k, v, impl, kw, want_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.kw = kw
+        ctx.impl, ctx.kw = impl, kw
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _mha_bwd_torch(q, k, v, out, lse, dout, **ctx.kw)
+        if ctx.impl == "cuda":
+            from .kernel import flash_attention_bwd
+            dq, dk, dv = flash_attention_bwd(
+                q, k, v, out, lse, dout.contiguous(),
+                **{n: ctx.kw[n] for n in ("causal", "window", "softcap",
+                                          "scale", "q_offset")})
+        else:
+            dq, dk, dv = _mha_bwd_torch(q, k, v, out, lse, dout, **ctx.kw)
         return dq, dk, dv, None, None
 
 

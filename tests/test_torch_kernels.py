@@ -9,9 +9,12 @@ bf16 before the PV product at different running maxima).
 On the card (marker ``cuda``; skipped without one): the hand-written CUDA
 kernels against the plain versions on the same shapes plus the serving
 shapes (qwen2-7b: G = 28/4 = 7; gemma2: D 256; reduced: D 16) and the
-edges of the bf16 kernel's tiles. The fp32 cases hold the fp32 path to
-2e-5, which TF32 products would miss. These need no JAX, so the file runs
-on a machine without it.
+edges of the bf16 kernel's tiles; the attention backward
+(``flash_attention_bwd``) against ``_mha_bwd_torch`` on the same inputs,
+at the training shapes too, with the tolerances of the attention VJP
+(``tests/test_torch_train.py:VJP_TOL``). The fp32 cases hold the fp32
+path to 2e-5, which TF32 products would miss. These need no JAX, so the
+file runs on a machine without it.
 """
 import numpy as np
 import pytest
@@ -198,6 +201,90 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     assert (fa.KERNEL.launches, fd.KERNEL.launches) == before
 
 
+def test_flash_attention_bwd_refuses_before_any_launch():
+    """The backward's wrapper checks dtypes and shapes before the device,
+    so each refusal shows on the CPU: mixed dtypes, a head dim outside
+    ``HEAD_DIMS``, then CPU tensors; nothing is built or launched."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    B, S, H, KV, D = 1, 8, 4, 2, 16
+
+    def args(dtype=torch.float32, d=D, **change):
+        t = dict(q=torch.zeros(B, S, H, d, dtype=dtype),
+                 k=torch.zeros(B, S, KV, d, dtype=dtype),
+                 v=torch.zeros(B, S, KV, d, dtype=dtype),
+                 out=torch.zeros(B, S, H, d, dtype=dtype),
+                 lse=torch.zeros(B, S, H),
+                 dout=torch.zeros(B, S, H, d, dtype=dtype))
+        t.update(change)
+        return t
+    built, before = fa.BWD_KERNEL._fn, fa.BWD_KERNEL.launches
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        fa.flash_attention_bwd(**args(dout=torch.zeros(B, S, H, D,
+                                                       dtype=torch.bfloat16)))
+    with pytest.raises(TypeError, match="float32 or all bfloat16"):
+        fa.flash_attention_bwd(**args(torch.float16))
+    with pytest.raises(TypeError, match="lse must be float32"):
+        fa.flash_attention_bwd(**args(lse=torch.zeros(B, S, H,
+                                                      dtype=torch.bfloat16)))
+    with pytest.raises(ValueError, match="head dim 48"):
+        fa.flash_attention_bwd(**args(d=48))
+    with pytest.raises(ValueError, match="must match q"):
+        fa.flash_attention_bwd(**args(out=torch.zeros(B, S + 1, H, D)))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fa.flash_attention_bwd(**args())
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        fa.flash_attention_bwd(**args(torch.bfloat16))
+    assert fa.BWD_KERNEL._fn is built and fa.BWD_KERNEL.launches == before
+
+
+def test_mha_function_routes_its_backward_by_impl(monkeypatch):
+    """``MhaFunction``'s backward is its forward's impl's: "torch" runs
+    ``_mha_bwd_torch`` and never the kernel; "cuda" (the kernels replaced by
+    CPU stand-ins that call the plain versions) calls
+    ``flash_attention_bwd`` once, with the forward's lse, a contiguous dout
+    and the attention's keyword arguments, and never ``_mha_bwd_torch``."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    case = (2, 40, 100, 4, 2, 16, True, 16, 30.0)
+    B, S, T, H, KV, D, causal, window, softcap = case
+    q, k, v = (torch.from_numpy(x) for x in _attn_inputs(case))
+    kw = dict(causal=causal, window=window, softcap=softcap, q_offset=T - S,
+              q_chunk=16, kv_chunk=32)
+    plain_bwd = t_ops._mha_bwd_torch
+    calls = {"torch": 0, "kernel": []}
+
+    def counting_bwd(*a, **k):
+        calls["torch"] += 1
+        return plain_bwd(*a, **k)
+
+    def fake_fwd(q, k, v, return_lse=False, **fkw):   # lse as the kernel's [B, S, H]
+        out, lse = t_ops._mha_torch(q, k, v, q_chunk=16, kv_chunk=32, **fkw)
+        return (out, lse.view(q.shape[:3])) if return_lse else out
+
+    def fake_bwd(q, k, v, out, lse, dout, **bkw):
+        calls["kernel"].append((dout.is_contiguous(), tuple(lse.shape), bkw))
+        return plain_bwd(q, k, v, out, lse.view(B, S, KV, H // KV), dout,
+                         q_chunk=16, kv_chunk=32, **bkw)
+
+    monkeypatch.setattr(t_ops, "_mha_bwd_torch", counting_bwd)
+    monkeypatch.setattr(fa, "flash_attention", fake_fwd)
+    monkeypatch.setattr(fa, "flash_attention_bwd", fake_bwd)
+    grads = {}
+    for impl in ("torch", "cuda"):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = t_ops.mha(*leaves, impl=impl, **kw)
+        # a dout laid out [B, H, S, D]: autograd hands it on as it is
+        dout = torch.ones(B, H, S, D).transpose(1, 2)
+        out.backward(dout)
+        grads[impl] = [t.grad for t in leaves]
+        assert calls["torch"] == 1
+    assert calls["kernel"] == [(True, (B, S, KV, H // KV),
+                                dict(causal=causal, window=window,
+                                     softcap=softcap, scale=None,
+                                     q_offset=T - S))]
+    for a, b in zip(grads["torch"], grads["cuda"]):
+        torch.testing.assert_close(a, b, atol=2e-5, rtol=2e-5)
+
+
 # ------------------------------------------------------------ card: kernels
 
 CUDA_ATTN_CASES = ATTN_CASES + [
@@ -310,3 +397,141 @@ def test_flash_decode_ignores_the_cache_past_each_length(cuda):
         torch.cuda.synchronize()
         assert torch.isfinite(out.float()).all(), dtype
         _close(out.float().cpu(), want.float().cpu(), DECODE_TOL[dtype])
+
+
+# ------------------------------------------------------------ card: backward
+
+CUDA_BWD_CASES = ATTN_CASES + [
+    # B, S, T, H, KV, D, causal, window, softcap
+    (1, 4096, 4096, 16, 8, 128, True, 0, 0.0),    # internvl2-2b's train_4k heads
+    (1, 1023, 1023, 28, 4, 128, True, 0, 0.0),    # qwen2-7b's G = 7, ragged last tiles
+    (1, 300, 300, 16, 8, 256, True, 100, 50.0),   # gemma2-9b's D 256, window, softcap
+    (2, 200, 450, 16, 16, 64, False, 0, 0.0),     # seamless's cross-attention, S < T
+    (2, 130, 130, 4, 2, 16, True, 0, 0.0),        # D 16
+    (2, 130, 70, 4, 1, 32, False, 0, 0.0),        # D 32, S > T
+    (2, 0, 64, 4, 2, 64, True, 0, 0.0),           # S 0: dk and dv are 0
+    (2, 64, 0, 4, 2, 64, False, 0, 0.0),          # T 0: dq is 0
+]
+
+
+def _bwd_inputs(case, dtype, device, seed=0):
+    """(q, k, v, out, lse [B, S, H], dout): the kernel's forward and its
+    lse on seeded inputs."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    B, S, T, H, KV, D, causal, window, softcap = case
+    g = torch.Generator(device=device).manual_seed(seed)
+    td = getattr(torch, dtype)
+    q, dout = (torch.randn((B, S, H, D), generator=g, device=device).to(td)
+               for _ in range(2))
+    k, v = (torch.randn((B, T, KV, D), generator=g, device=device).to(td)
+            for _ in range(2))
+    out, lse = flash_attention(q, k, v, return_lse=True, **_bwd_kw(case))
+    return q, k, v, out, lse, dout
+
+
+def _bwd_kw(case):
+    B, S, T, H, KV, D, causal, window, softcap = case
+    return dict(causal=causal, window=window, softcap=softcap,
+                q_offset=T - S if causal else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", CUDA_BWD_CASES)
+def test_flash_attention_bwd_vs_plain(cuda, case, dtype):
+    """dq, dk, dv of the kernel against ``_mha_bwd_torch`` on the same (q,
+    k, v, out, lse, dout), at the attention VJP's tolerances (bf16 2e-2,
+    fp32 2e-5); each in its input's dtype."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
+    B, S, T, H, KV, D = case[:6]
+    q, k, v, out, lse, dout = _bwd_inputs(case, dtype, cuda)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, **_bwd_kw(case))
+    want = t_ops._mha_bwd_torch(q, k, v, out, lse.view(B, S, KV, H // KV),
+                                dout, scale=None, q_chunk=1024,
+                                kv_chunk=1024, **_bwd_kw(case))
+    torch.cuda.synchronize()
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    for g, w, ref in zip(got, want, (q, k, v)):
+        assert g.dtype == ref.dtype and g.shape == ref.shape
+        _close(g.float().cpu(), w.float().cpu(), tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_flash_attention_bwd_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs give the same bits: the GQA sum over
+    a group's heads stays in one block, and no gradient is summed by
+    atomics."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
+    case = (2, 1023, 1023, 28, 4, 128, True, 0, 0.0)
+    args = _bwd_inputs(case, dtype, cuda)
+    first = flash_attention_bwd(*args, **_bwd_kw(case))
+    second = flash_attention_bwd(*args, **_bwd_kw(case))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_mha_backward_takes_a_non_contiguous_dout(cuda, dtype):
+    """``mha(...).backward`` with a gradient laid out [B, H, S, D]: the
+    kernel's gradients match the plain route's, and the kernel ran."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    case = (2, 300, 300, 8, 2, 64, True, 0, 0.0)
+    B, S, T, H, KV, D = case[:6]
+    q, k, v, _, _, _ = _bwd_inputs(case, dtype, cuda)
+    dout = torch.randn((B, H, S, D), device=cuda).to(q.dtype).transpose(1, 2)
+    assert not dout.is_contiguous()
+    grads = {}
+    for impl in ("cuda", "torch"):
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        before = fa.BWD_KERNEL.launches
+        t_ops.mha(*leaves, impl=impl, **_bwd_kw(case)).backward(dout)
+        assert fa.BWD_KERNEL.launches - before == (impl == "cuda")
+        grads[impl] = [t.grad.float().cpu() for t in leaves]
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    for a, b in zip(grads["cuda"], grads["torch"]):
+        _close(a, b, tol)
+
+
+@pytest.mark.cuda
+def test_train_step_runs_the_backward_kernel(cuda, monkeypatch):
+    """One step of a reduced internvl2-2b (2 layers, 2 microbatches, its
+    ``vit_stub`` patches, GQA at D 128) on the card: every attention call
+    whose backward runs launches the kernel once, and ``_mha_bwd_torch``
+    is never entered."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.models import init_params
+    from repro_torch.models.config import reduced
+    from repro_torch.training import (OptimizerConfig, make_opt_state,
+                                      make_train_step)
+
+    def refuse(*a, **k):
+        raise AssertionError("_mha_bwd_torch ran on the card")
+    monkeypatch.setattr(t_ops, "_mha_bwd_torch", refuse)
+    calls = []
+    kernel_bwd = fa.flash_attention_bwd
+
+    def counting(*a, **k):
+        calls.append(a[0].shape)
+        return kernel_bwd(*a, **k)
+    monkeypatch.setattr(fa, "flash_attention_bwd", counting)
+    cfg = reduced(get_config("internvl2-2b"), n_layers=2, d_model=256,
+                  n_heads=4, n_kv_heads=2, head_dim=128)
+    params = init_params(cfg, generator=torch.Generator(device=cuda).manual_seed(0),
+                         device=cuda, dtype=torch.float32)
+    step = make_train_step(cfg, OptimizerConfig(), microbatches=2)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (4, 64), generator=g,
+                                     device=cuda, dtype=torch.int32),
+             "patches": torch.randn((4, cfg.frontend_tokens, cfg.frontend_dim),
+                                    generator=g, device=cuda)}
+    before = fa.BWD_KERNEL.launches
+    params, _, metrics = step(params, make_opt_state(params), batch)
+    torch.cuda.synchronize()
+    assert torch.isfinite(torch.as_tensor(float(metrics["loss"])))
+    assert len(calls) == cfg.n_layers * 2
+    assert all(s == (2, 64, 4, 128) for s in calls)
+    assert fa.BWD_KERNEL.launches - before == len(calls)

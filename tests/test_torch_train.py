@@ -621,7 +621,8 @@ def test_mha_function_grads_through_the_kernel(cuda, case, dtype):
 def test_ctypes_wrappers_refuse_autograd(cuda):
     """Every kernel wrapper raises when grad mode is on and an input needs
     a gradient, and runs under ``torch.no_grad``."""
-    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention, flash_attention_bwd)
     from repro_torch.kernels.flash_decode.kernel import flash_decode
     from repro_torch.kernels.grouped_gemm.kernel import grouped_gemm
     from repro_torch.kernels.mamba_scan.kernel import mamba_scan
@@ -634,8 +635,11 @@ def test_ctypes_wrappers_refuse_autograd(cuda):
     lengths = torch.full((1,), 16, dtype=torch.int32, device=cuda)
     sizes = torch.tensor([8, 8], dtype=torch.int32, device=cuda)
     f32 = torch.float32
+    lse = torch.zeros((1, 16, 4), device=cuda)
     calls = {
         "flash_attention": (lambda a: flash_attention(a, k, k), q),
+        "flash_attention_bwd": (lambda a: flash_attention_bwd(
+            a, k, k, q, lse, q), q.clone()),
         "flash_decode": (lambda a: flash_decode(a, k, k, lengths),
                          r(1, 1, 4, 64)),
         "grouped_gemm": (lambda a: grouped_gemm(a, sizes, r(2, 64, 32)),
