@@ -5,7 +5,10 @@ read from the timestamps ``GenerationEngine`` sets on each ``Request``.
 every request of that call with the same ``admit_started_at``; so the
 requests that share it are one (rows, bucket) admission shape. A shape
 met before (warmed in set-up, or earlier in the run) replays its graph;
-the first call of a shape runs eagerly and is then captured.
+the first call of a shape runs eagerly and is then captured. Where the
+configuration's reference module says that the engine admits at exact
+lengths (``exact_admission``), a call's bucket is its prompts' length
+and every call is eager.
 
 A request's first token is made at ``first_token_at``; the rest come one
 a decode step until ``finished_at``. Counted over a window, they are
@@ -20,9 +23,11 @@ from typing import Dict, Iterable, List, Sequence, Set, Tuple
 import numpy as np
 
 
-def bucket(n: int, max_len: int) -> int:
+def bucket(n: int, max_len: int, exact: bool = False) -> int:
     """The engine's prompt bucket: the next power of two from 8, capped at
-    ``max_len - 1``."""
+    ``max_len - 1``; with ``exact``, ``n`` itself."""
+    if exact:
+        return n
     b = 8
     while b < n:
         b <<= 1
@@ -44,10 +49,12 @@ class Group:
 
 
 def groups(requests: Iterable, max_len: int,
-           warmed: Iterable[Tuple[int, int]]) -> List[Group]:
+           warmed: Iterable[Tuple[int, int]], exact: bool = False
+           ) -> List[Group]:
     """The admission calls of ``requests`` (every request served so far,
     so that a shape's first call is found), in time order; a call is
-    eager where its shape was neither warmed nor met before it."""
+    eager where its shape was neither warmed nor met before it, and every
+    call is with ``exact`` (exact-length admission)."""
     by_start: Dict[float, list] = {}
     for r in requests:
         if r.admit_started_at > 0:
@@ -57,9 +64,9 @@ def groups(requests: Iterable, max_len: int,
     for t in sorted(by_start):
         rs = by_start[t]
         b = bucket(int(np.asarray(rs[0].prompt).reshape(-1).shape[0]),
-                   max_len)
+                   max_len, exact)
         shape = (len(rs), b)
-        out.append(Group(t, len(rs), b, shape not in seen,
+        out.append(Group(t, len(rs), b, exact or shape not in seen,
                          [r.uid for r in rs]))
         seen.add(shape)
     return out

@@ -10,15 +10,18 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from . import check, flops, stats
-from .manifest import Cell, metric_reader
+from . import check, stats
+from .flops import counts
+from .manifest import Cell, metric_reader, reference
 
 NS = 1_000_000_000
 
 
 @dataclass
 class RunData:
-    """What the per-layer readers read (``vcbench/metrics/<name>.py``)."""
+    """What the per-layer readers read (``vcbench/metrics/<name>.py``);
+    ``flops``: the chip's peaks and the configuration's counts
+    (``flops.counts``)."""
     cell: Cell
     model: Dict[str, Any]
     seconds: float
@@ -31,8 +34,12 @@ class RunData:
     slice_steps: list = field(default_factory=list)
     train_steps: List[Tuple[int, int]] = field(default_factory=list)
     train_profiled: Optional[int] = None
-    flops: Any = flops
+    flops: Any = None
     stats: Any = stats
+
+    def __post_init__(self):
+        if self.flops is None:
+            self.flops = counts(self.cell.config)
 
 
 def _p(values: List[float], q: float) -> float:
@@ -44,7 +51,7 @@ def _p(values: List[float], q: float) -> float:
 def _serve(cell: Cell, seed: int, seconds: float, trace: bool,
            device: torch.device, t_start: float, log: Callable,
            limit: Callable) -> Tuple[Dict, Dict, RunData, Dict]:
-    from reference.model import Ref, precise
+    from reference.common import precise
     from .admission import groups, histogram, tokens_between
     from .serve import ServeCell
     t_cell = time.monotonic()
@@ -87,7 +94,7 @@ def _serve(cell: Cell, seed: int, seconds: float, trace: bool,
         f"{len(late)} submissions ({win.closed_sent} of closed-loop "
         f"tenants)")
     max_len = int(cell.config["deployment"]["max_len"])
-    met = [g for g in groups(win.served, max_len, sc.warmed)
+    met = [g for g in groups(win.served, max_len, sc.warmed, sc.exact)
            if win.t0 <= g.started * NS < win.t1]
     new_shapes = sorted({g.shape for g in met if g.eager})
     c0, c1 = win.counters
@@ -111,7 +118,7 @@ def _serve(cell: Cell, seed: int, seconds: float, trace: bool,
     # the check, once the window has closed and the program is freed
     lim = cell.limits
     picks, covers = check.sample(win, max_len, sc.warmed, seed,
-                                 lim["sample"])
+                                 lim["sample"], sc.exact)
     unfinished = sum(1 for _, r in fg if r is None)
     wrong = sum(1 for s in win.sent if s.uid in win.done
                 and len(win.done[s.uid].tokens) != s.max_new)
@@ -120,7 +127,8 @@ def _serve(cell: Cell, seed: int, seconds: float, trace: bool,
     del sc
     t_ref = time.monotonic()
     precise()
-    gaps = check.served_gaps(Ref(model), weights, picks, device)
+    gaps = check.served_gaps(reference(cell).Ref(model), weights, picks,
+                             device)
     log(f"check: {len(picks)} requests, {sum(len(r.tokens) for _, r in picks)}"
         f" served tokens, covering {covers}; widest gap each {gaps}; "
         f"reference {time.monotonic() - t_ref:.2f} s")
@@ -163,7 +171,7 @@ def _train(cell: Cell, seed: int, seconds: float, trace: bool,
     tc.free()
     del tc
     t_ref = time.monotonic()
-    ref = reference_numbers(cell.config["model"], cell.mix, seed, device)
+    ref = reference_numbers(cell.config, cell.mix, seed, device)
     keep = check.moved_leaves(ref["grad1"])
     lg = loss_gap(prog_losses, ref["losses"])
     gg, g_at = check.leaf_gap(grad1, ref["grad1"])
@@ -186,7 +194,10 @@ def _train(cell: Cell, seed: int, seconds: float, trace: bool,
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
              device: torch.device, t_start: float,
              log: Callable = print) -> Dict[str, Any]:
-    """One run; returns the result line's object, "checks" last."""
+    """One run; returns the result line's object, "checks" last. A
+    configuration that its reference module does not cover stops here."""
+    reference(cell)
+
     def limit(name, value):
         return {"value": float(value), "limit": float(cell.limits[name]
                                                       ["limit"])}

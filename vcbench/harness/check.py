@@ -28,7 +28,8 @@ import torch
 
 # ---------------------------------------------------------------- serving
 
-def sample(win, max_len: int, warmed, seed: int, lim: Dict[str, int]
+def sample(win, max_len: int, warmed, seed: int, lim: Dict[str, int],
+           exact: bool = False
            ) -> Tuple[List[Tuple[Any, Any]], Dict[str, Any]]:
     """(Sent, Request) pairs to compare, drawn from the seed among the
     requests due in the window: the longest; one of each admission shape
@@ -36,7 +37,9 @@ def sample(win, max_len: int, warmed, seed: int, lim: Dict[str, int]
     ``lim["cross_section"]`` of the requests that held a slot at one
     instant of the window, so each in a slot of its own; then others,
     until ``lim["served_tokens"]`` tokens and ``lim["min_requests"]``
-    requests. Also returns what the sample covers, for the log."""
+    requests. ``exact``: the engine admits at exact lengths
+    (``admission.groups``). Also returns what the sample covers, for the
+    log."""
     from .admission import groups
     pool = [(s, win.done[s.uid]) for s in win.sent
             if s.uid in win.done and win.t0 <= s.due_ns < win.t1]
@@ -52,7 +55,7 @@ def sample(win, max_len: int, warmed, seed: int, lim: Dict[str, int]
 
     add(max(order, key=lambda p: len(p[1].tokens)))
     shape_of = {}
-    for g in groups(win.served, max_len, warmed):
+    for g in groups(win.served, max_len, warmed, exact):
         for u in g.uids:
             shape_of[u] = (g.rows, g.bucket, g.eager)
     covered = set()

@@ -2,18 +2,24 @@
 configuration (``vcbench/configs/<config>.json``), its traffic mix
 (``vcbench/mixes/<traffic>.json``), its correctness limits
 (``vcbench/limits/<workload>.json``) and its metrics, each per-layer
-metric read by ``vcbench/metrics/<metric>.py``. Adding a cell, a mix or a
-metric adds files and entries; no file here needs an edit."""
+metric read by ``vcbench/metrics/<metric>.py``. A configuration names its
+reference module, which holds all that depends on the architecture
+(``reference(...)``; the contract is in ``vcbench/reference/model.py``).
+Adding a cell, a mix, a metric or an architecture adds files and
+entries; no file here needs an edit."""
 from __future__ import annotations
 
 import importlib.util
 import json
+import sys
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional
+from types import ModuleType
+from typing import Any, Callable, Dict, List, Optional, Union
 
 BENCH_DIR = Path(__file__).resolve().parents[1]      # vcbench/
 ROOT = BENCH_DIR.parent                               # the checkout
+DEFAULT_REFERENCE = "vcbench/reference/model.py"
 
 
 def load_json(path: Path) -> Any:
@@ -79,9 +85,46 @@ def load_cell(workload: str, manifest_path: Optional[Path] = None,
 def metric_reader(name: str) -> Callable[[Any], Optional[float]]:
     """``read(run)`` of ``vcbench/metrics/<name>.py`` (a metric's name may
     hold dots, so the file is loaded by its path)."""
-    path = BENCH_DIR / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"vcbench_metric_{name.replace('.', '_').replace('-', '_')}", path)
+    return _load(BENCH_DIR / "metrics" / f"{name}.py",
+                 f"vcbench_metric_{name.replace('.', '_').replace('-', '_')}"
+                 ).read
+
+
+def _load(path: Path, name: str) -> ModuleType:
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+_REFERENCES: Dict[str, ModuleType] = {}
+
+
+def reference(what: Union[Cell, Dict[str, Any]]) -> ModuleType:
+    """The reference module that a cell's configuration (or a configuration
+    file's dict) names under ``"reference"``, a path from the checkout;
+    without the key, ``vcbench/reference/model.py``. Loaded by its path
+    once and kept (a training step's batch asks for it again, so a call
+    after the first touches no file). A configuration that the module does
+    not cover stops here, with an error that names both."""
+    config = what.config if isinstance(what, Cell) else what
+    rel = config.get("reference", DEFAULT_REFERENCE)
+    mod = _REFERENCES.get(rel)
+    if mod is None:
+        path = (ROOT / rel).resolve()
+        if ROOT not in path.parents or not path.is_file():
+            raise ValueError(f"configuration {config.get('name')!r}: its "
+                             f"reference {rel!r} is no file of the checkout")
+        name = "vcbench_reference_" + "".join(
+            c if c.isalnum() else "_" for c in str(path.relative_to(ROOT)))
+        mod = _REFERENCES[rel] = _load(path, name)
+    lacks = mod.unsupported(config["model"])
+    if lacks is not None:
+        key = ("its \"reference\" key" if "reference" in config
+               else "no \"reference\" key, so the default")
+        raise NotImplementedError(
+            f"configuration {config.get('name')!r} ({key}: {rel}): the "
+            f"reference module does not cover {lacks}; name a reference "
+            f"module that does in the configuration's \"reference\" key")
+    return mod

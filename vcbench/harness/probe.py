@@ -35,8 +35,9 @@ class StepSpan:
 
 @dataclass
 class Probe:
-    """The spans of one engine."""
+    """The spans of one engine (``exact``: it admits at exact lengths)."""
     max_len: int
+    exact: bool = False
     admits: List[AdmitSpan] = field(default_factory=list)
     steps: List[StepSpan] = field(default_factory=list)
     lock: threading.Lock = field(default_factory=threading.Lock)
@@ -78,7 +79,8 @@ class Probe:
             groups: Dict[int, List[int]] = {}
             for r in take:
                 n = int(np.asarray(r.prompt).reshape(-1).shape[0])
-                groups.setdefault(bucket(n, self.max_len), []).append(n)
+                groups.setdefault(bucket(n, self.max_len, self.exact),
+                                  []).append(n)
             self._enter()
             try:
                 t0 = time.monotonic_ns()

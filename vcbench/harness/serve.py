@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from . import kineto, traffic
+from .manifest import reference
 from .probe import Probe
 from .weights import make_weights
 
@@ -83,12 +84,16 @@ class ServeCell:
         self.dep = cell.config["deployment"]
         self.cfg = ModelConfig(**self.model)
         self.device = device
+        # the engine admits every prompt at its exact length, eagerly
+        self.exact = bool(reference(cell).exact_admission(self.model))
         t = time.monotonic()
-        self.weights = make_weights(self.model, seed, device, torch.bfloat16)
+        self.weights = make_weights(cell.config, seed, device,
+                                    torch.bfloat16)
         if device.type == "cuda":
             torch.cuda.synchronize()
         phases["weights"] = time.monotonic() - t
-        self.probe = Probe(self.dep["max_len"]) if trace else None
+        self.probe = (Probe(self.dep["max_len"], self.exact) if trace
+                      else None)
         self.engines: List[Any] = []
         self.errors: List[str] = []
         self.closed = {t["name"] for t in self.mix["tenants"]

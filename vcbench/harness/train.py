@@ -18,34 +18,34 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from . import kineto
+from .manifest import reference
 from .weights import get, leaves, make_leaf, make_weights, per_layer
 
 NS = 1_000_000_000
 CHECK_STEPS = 3
 
 
-def batch_at(model: Dict[str, Any], mix: Dict[str, Any], seed: int,
+def batch_at(config: Dict[str, Any], mix: Dict[str, Any], seed: int,
              step: int, device: torch.device) -> Dict[str, torch.Tensor]:
-    """Step ``step``'s batch: token ids uniform over the vocabulary and,
-    for ``vit_stub``, standard-normal image tokens, from (seed, step)."""
+    """Step ``step``'s batch from (seed, step): token ids uniform over the
+    vocabulary, then the inputs that the configuration's reference module
+    adds (``inputs``: image tokens, say)."""
+    model = config["model"]
     B, S = int(mix["batch"]), int(mix["seq"])
     gen = torch.Generator(device=device).manual_seed(
         (int(seed) * 1_000_003 + step) % (2 ** 62))
     out = {"tokens": torch.randint(0, model["vocab"], (B, S), generator=gen,
                                    device=device, dtype=torch.int32)}
-    if model.get("frontend") == "vit_stub":
-        out["patches"] = torch.randn(
-            (B, model["frontend_tokens"], model["frontend_dim"]),
-            generator=gen, device=device, dtype=torch.float32)
+    out.update(reference(config).inputs(model, B, gen, device))
     return out
 
 
-def change_norms(params: Dict[str, Any], model: Dict[str, Any], seed: int
+def change_norms(params: Dict[str, Any], config: Dict[str, Any], seed: int
                  ) -> Dict[str, float]:
     """Each leaf's norm of its change from the seed's start, the start
     made again one stacked leaf at a time."""
     out: Dict[str, float] = {}
-    for i, leaf in enumerate(leaves(model)):
+    for i, leaf in enumerate(leaves(config)):
         now = get(params, leaf[0])
         diff = now.detach().float() - make_leaf(leaf, seed, i, now.device,
                                                 torch.float32)
@@ -64,10 +64,10 @@ def _split(path, t: torch.Tensor):
     return [(name, t)]
 
 
-def norms(tree: Dict[str, Any], model: Dict[str, Any], scale: float = 1.0
+def norms(tree: Dict[str, Any], config: Dict[str, Any], scale: float = 1.0
           ) -> Dict[str, float]:
     return {n: float(t.double().norm()) * scale
-            for n, t in per_layer(tree, model)}
+            for n, t in per_layer(tree, config)}
 
 
 class TrainCell:
@@ -78,11 +78,12 @@ class TrainCell:
         from repro_torch.training import (OptimizerConfig, make_opt_state,
                                           make_train_step)
         self.cell, self.mix, self.log = cell, cell.mix, log
+        self.config = cell.config
         self.model = cell.config["model"]
         self.seed, self.device = int(seed), device
         self.opt_cfg = dict(self.mix["optimizer"])
         cfg = ModelConfig(**self.model)
-        self.params = make_weights(self.model, seed, device, torch.float32)
+        self.params = make_weights(self.config, seed, device, torch.float32)
         self.opt = make_opt_state(self.params)
         self.step_fn = make_train_step(
             cfg, OptimizerConfig(**self.opt_cfg), remat=True,
@@ -95,13 +96,13 @@ class TrainCell:
             if i == 0:
                 gn = float(metrics["grad_norm"])
                 scale = min(1.0, self.opt_cfg["clip_norm"] / (gn + 1e-9))
-                self.grad1 = norms(self.opt["m"], self.model,
+                self.grad1 = norms(self.opt["m"], self.config,
                                    1.0 / ((1 - self.opt_cfg["b1"]) * scale))
-        self.change3 = change_norms(self.params, self.model, self.seed)
+        self.change3 = change_norms(self.params, self.config, self.seed)
 
     def run_step(self) -> Tuple[float, Dict[str, Any]]:
         """One step of the job on the next batch; the loss read back."""
-        batch = batch_at(self.model, self.mix, self.seed, self.next_step,
+        batch = batch_at(self.config, self.mix, self.seed, self.next_step,
                          self.device)
         self.params, self.opt, metrics = self.step_fn(self.params, self.opt,
                                                       batch)
@@ -152,16 +153,17 @@ class TrainCell:
             torch.cuda.empty_cache()
 
 
-def reference_numbers(model: Dict[str, Any], mix: Dict[str, Any], seed: int,
-                      device: torch.device, precision: str = "fp32",
-                      steps: int = CHECK_STEPS) -> Dict[str, Any]:
+def reference_numbers(config: Dict[str, Any], mix: Dict[str, Any],
+                      seed: int, device: torch.device,
+                      precision: str = "fp32", steps: int = CHECK_STEPS
+                      ) -> Dict[str, Any]:
     """The reference's losses, first-gradient norms and change norms over
     the first ``steps`` steps of the seed's job (the same weights and
-    batches as the program's)."""
-    from reference.model import AdamW, Ref, flat, precise
+    batches as the program's), by ``config``'s reference module."""
+    from reference.common import AdamW, flat, precise
     precise()
-    ref = Ref(model, precision)
-    params = make_weights(model, seed, device, torch.float32)
+    ref = reference(config).Ref(config["model"], precision)
+    params = make_weights(config, seed, device, torch.float32)
     for _, p in flat(params):
         p.requires_grad_(True)
     adam = AdamW(mix["optimizer"], params)
@@ -169,12 +171,12 @@ def reference_numbers(model: Dict[str, Any], mix: Dict[str, Any], seed: int,
     weight = B * (S - 1)
     losses, grad1 = [], None
     for i in range(steps):
-        batch = batch_at(model, mix, seed, i, device)
+        batch = batch_at(config, mix, seed, i, device)
         total = 0.0
         for row in range(B):
-            patches = batch.get("patches")
             ls = ref.row_loss_sum(params, batch["tokens"][row],
-                                  None if patches is None else patches[row])
+                                  **{k: v[row] for k, v in batch.items()
+                                     if k != "tokens"})
             (ls / weight).backward()
             total += float(ls.detach())
         losses.append(total / weight)
@@ -188,7 +190,7 @@ def reference_numbers(model: Dict[str, Any], mix: Dict[str, Any], seed: int,
         for _, p in flat(params):
             p.grad = None
     with torch.no_grad():
-        change = change_norms(params, model, seed)
+        change = change_norms(params, config, seed)
     del params, adam
     gc.collect()
     return {"losses": losses, "grad1": grad1, "change": change}

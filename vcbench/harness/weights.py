@@ -1,8 +1,9 @@
 """Weights made by the benchmark from the run's seed, on the device, one
 call a leaf (each leaf stacked over the layers), in the type the cell
-serves or trains them in. The tree has the program's layout (nested
-dicts, dense ``w`` as [in, out], blocks stacked on a leading layer axis),
-so the same tensors go to the program and to the reference.
+serves or trains them in. The leaves, in the program's layout (nested
+dicts, dense ``w`` as [in, out], blocks stacked on a leading layer axis)
+and in a fixed order, are the configuration's reference module's
+(``leaves``), so the same tensors go to the program and to the reference.
 
 Every leaf has a generator of its own, seeded from (seed, leaf index):
 one leaf can be made again alone, which is how the training check finds
@@ -15,47 +16,9 @@ from typing import Any, Dict, Iterator, List, Tuple
 import numpy as np
 import torch
 
+from .manifest import reference
+
 Leaf = Tuple[Tuple[str, ...], Tuple[int, ...], str, float]
-
-
-def padded_vocab(vocab: int) -> int:
-    """The program's padded vocabulary (rows of the table and the head)."""
-    unit = 256 if vocab < 8192 else 4096
-    return -(-vocab // unit) * unit
-
-
-def leaves(model: Dict[str, Any]) -> List[Leaf]:
-    """(path, shape, kind, stddev) of every leaf, in a fixed order. Kinds:
-    "matrix" (the compute dtype), "bias" and "norm" (float32)."""
-    d, L = model["d_model"], model["n_layers"]
-    H, KV, hd = model["n_heads"], model["n_kv_heads"], model["head_dim"]
-    dff, V = model["d_ff"], padded_vocab(model["vocab"])
-    if model.get("layer_pattern", "g") != "g" or model.get("n_experts", 0):
-        raise NotImplementedError("the benchmark's weights cover dense 'g' "
-                                  "decoders only")
-    out: List[Leaf] = [(("embed", "table"), (V, d), "matrix", 1.0),
-                       (("final_norm",), (d,), "norm", 0.1)]
-    if not model.get("tie_embeddings", False):
-        out.append((("lm_head", "w"), (d, V), "matrix", d ** -0.5))
-    sub = ("blocks", "sub0")
-    out.append((sub + ("ln1",), (L, d), "norm", 0.1))
-    for name, width in (("wq", H * hd), ("wk", KV * hd), ("wv", KV * hd)):
-        out.append((sub + ("attn", name, "w"), (L, d, width), "matrix",
-                    d ** -0.5))
-        if model.get("qkv_bias", False):
-            out.append((sub + ("attn", name, "b"), (L, width), "bias", 0.05))
-    out.append((sub + ("attn", "wo", "w"), (L, H * hd, d), "matrix",
-                (H * hd) ** -0.5))
-    out.append((sub + ("ln2",), (L, d), "norm", 0.1))
-    for name in ("wi", "wg"):
-        out.append((sub + ("ffn", name, "w"), (L, d, dff), "matrix",
-                    d ** -0.5))
-    out.append((sub + ("ffn", "wo", "w"), (L, dff, d), "matrix",
-                dff ** -0.5))
-    if model.get("frontend") == "vit_stub":
-        fd = model["frontend_dim"]
-        out.append((("frontend_proj", "w"), (fd, d), "matrix", fd ** -0.5))
-    return out
 
 
 def leaf_seed(seed: int, index: int) -> int:
@@ -88,28 +51,33 @@ def get(tree: Dict[str, Any], path: Tuple[str, ...]) -> Any:
     return tree
 
 
-def make_weights(model: Dict[str, Any], seed: int, device: torch.device,
+def leaves(config: Dict[str, Any]) -> List[Leaf]:
+    """The leaves of ``config``'s model, from its reference module."""
+    return reference(config).leaves(config["model"])
+
+
+def make_weights(config: Dict[str, Any], seed: int, device: torch.device,
                  dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
-    """The whole tree of ``model``'s weights for ``seed``."""
+    """The whole tree of ``config``'s weights for ``seed``."""
     tree: Dict[str, Any] = {}
-    for i, leaf in enumerate(leaves(model)):
+    for i, leaf in enumerate(leaves(config)):
         put(tree, leaf[0], make_leaf(leaf, seed, i, device, dtype))
     return tree
 
 
-def refill(tree: Dict[str, Any], model: Dict[str, Any], seed: int) -> None:
+def refill(tree: Dict[str, Any], config: Dict[str, Any], seed: int) -> None:
     """Write ``seed``'s weights into ``tree``'s tensors in place (a graph
     that binds their addresses stays valid)."""
-    for i, leaf in enumerate(leaves(model)):
+    for i, leaf in enumerate(leaves(config)):
         t = get(tree, leaf[0])
         t.copy_(make_leaf(leaf, seed, i, t.device, t.dtype))
 
 
-def per_layer(tree: Dict[str, Any], model: Dict[str, Any]
+def per_layer(tree: Dict[str, Any], config: Dict[str, Any]
               ) -> Iterator[Tuple[str, torch.Tensor]]:
     """(name, tensor) of every leaf, stacked leaves split by layer: the
     leaves that the training check compares one by one."""
-    for path, _, _, _ in leaves(model):
+    for path, _, _, _ in leaves(config):
         t = get(tree, path)
         name = ".".join(path)
         if path[0] == "blocks":

@@ -1,7 +1,8 @@
 """attn_bwd_share (layer: train step, ``training/step.py``): the device
 time of the kernels launched inside ``MhaFunctionBackward`` (the
-attention backward, ``_mha_bwd_torch``) over the device time of all the
-profiled step's kernels, in %."""
+attention backward: on the card the three launches of the hand-written
+``flash_attention_bwd``, its preprocess, dK/dV pass and dQ pass) over
+the device time of all the profiled step's kernels, in %."""
 from harness.kineto import node_device_ms
 
 

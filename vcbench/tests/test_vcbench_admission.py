@@ -87,3 +87,62 @@ def test_sample_covers_every_shape_and_distinct_slots():
     assert len(picks) >= 8 and len({s.uid for s, _ in picks}) == len(picks)
     again, _ = check.sample(win, 2048, [(1, 32)], 7, lim)
     assert [s.uid for s, _ in again] == [s.uid for s, _ in picks]
+
+
+def test_exact_admission_buckets_by_length_and_is_eager():
+    """An engine whose layers keep a recurrent state admits each prompt at
+    its length, never graphed: each call is its own shape, eager even
+    where the shape was warmed or met before."""
+    reqs = [req(1, 100, 3, 1.0, 2.0), req(2, 100, 3, 1.0, 2.0),  # 2 x 100
+            req(3, 100, 3, 2.0, 3.0),                             # 1 x 100
+            req(4, 300, 3, 3.0, 4.0),                             # 1 x 300
+            req(5, 100, 3, 4.0, 5.0), req(6, 100, 3, 4.0, 5.0)]  # 2 x 100
+    gs = admission.groups(reqs, 2048, warmed=[(1, 100)], exact=True)
+    assert [(g.shape, g.eager) for g in gs] == [
+        ((2, 100), True), ((1, 100), True), ((1, 300), True),
+        ((2, 100), True)]
+    assert [admission.bucket(n, 2048, exact=True) for n in (1, 9, 2000)] \
+        == [1, 9, 2000]
+
+
+@pytest.mark.parametrize("exact,want", [(False, [(2, 128, [100, 120]),
+                                                  (1, 512, [300])]),
+                                         (True, [(1, 100, [100]),
+                                                 (1, 120, [120]),
+                                                 (1, 300, [300])])])
+def test_probe_groups_an_admit_call_by_the_engines_rule(exact, want):
+    from harness.probe import Probe
+
+    class Engine:
+        slot_req, lengths = [None] * 4, [0] * 4
+
+        def free_slots(self):
+            return [0, 1, 2, 3]
+
+        def admit_many(self, reqs):
+            return reqs
+
+        def step(self):
+            return None
+
+    probe, engine = Probe(2048, exact), Engine()
+    probe.attach(engine)
+    engine.admit_many([req(1, 100, 3, 0, 0), req(2, 300, 3, 0, 0),
+                       req(3, 120, 3, 0, 0)])
+    assert probe.admits[0].groups == want
+
+
+def test_sample_under_exact_admission_names_every_call_eager():
+    reqs, sent = [], []
+    for i in range(12):
+        r = req(i, [20, 33, 47][i % 3], 6, 100.0 + i, 103.0 + i)
+        reqs.append(r)
+        sent.append(SimpleNamespace(uid=i, due_ns=int(r.admit_started_at
+                                                      * 1e9), prompt=r.prompt))
+    win = SimpleNamespace(sent=sent, done={r.uid: r for r in reqs},
+                          served=reqs, t0=int(100e9), t1=int(125e9))
+    lim = {"served_tokens": 12, "min_requests": 2, "cross_section": 1}
+    picks, info = check.sample(win, 2048, [(1, 32)], 7, lim, exact=True)
+    assert set(info["shapes"]) == {(1, 20, True), (1, 33, True),
+                                   (1, 47, True)}
+    assert info["eager"] == len(picks)

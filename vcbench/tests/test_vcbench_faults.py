@@ -123,8 +123,10 @@ def test_training_faults_are_not_correct(fault, monkeypatch):
 
 
 def test_serving_control_fails_the_limit():
-    from reference.model import Ref, precise
+    from harness.manifest import reference
+    from reference.common import precise
     c = tiny("tiny-dense.chat_tiny")
+    Ref = reference(c).Ref
     sc = serve.ServeCell(c, SEED, CPU, log=lambda m: None)
     try:
         win = sc.window(SEED, 1.5)
@@ -146,9 +148,8 @@ def test_serving_control_fails_the_limit():
 def test_training_control_fails_a_limit():
     from harness.train import loss_gap, reference_numbers
     c = tiny("tiny-vlm.train_tiny")
-    model = c.config["model"]
-    ref = reference_numbers(model, c.mix, SEED, CPU)
-    ctl = reference_numbers(model, c.mix, SEED, CPU, precision="fp8")
+    ref = reference_numbers(c.config, c.mix, SEED, CPU)
+    ctl = reference_numbers(c.config, c.mix, SEED, CPU, precision="fp8")
     gaps = {"loss_gap": loss_gap(ctl["losses"], ref["losses"]),
             "grad_gap": check.leaf_gap(ctl["grad1"], ref["grad1"])[0],
             "change_gap": check.leaf_gap(ctl["change"], ref["change"],

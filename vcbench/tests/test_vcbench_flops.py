@@ -1,14 +1,18 @@
 """The frozen counts against numbers worked out by hand for qwen2-7b: one
-decode step and one admit call, and their kernels' bounds."""
+decode step and one admit call, and their kernels' bounds, as the
+per-layer metrics read them (``harness.flops.counts``: the peaks beside
+the configuration's reference module's counts)."""
 import json
 from pathlib import Path
 
 import pytest
 
-from harness import flops
+from harness.flops import counts
 
-QWEN = json.loads((Path(__file__).resolve().parents[1] / "configs"
-                   / "qwen2-7b.json").read_text())["model"]
+CONFIG = json.loads((Path(__file__).resolve().parents[1] / "configs"
+                     / "qwen2-7b.json").read_text())
+QWEN = CONFIG["model"]
+flops = counts(CONFIG)
 
 # per layer: q, k, v (3584 x 128 x (28 + 4 + 4)), o (28 x 128 x 3584),
 # the SwiGLU (3 x 3584 x 18944); 28 layers

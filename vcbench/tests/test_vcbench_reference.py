@@ -20,7 +20,8 @@ CPU = torch.device("cpu")
 
 
 def _w(seed=1):
-    return make_weights(MODEL, seed, CPU, torch.float32)
+    return make_weights({"name": "t", "model": MODEL}, seed, CPU,
+                        torch.float32)
 
 
 def test_rope_is_a_complex_rotation():

@@ -33,18 +33,20 @@ sys.path.insert(0, str(ROOT / "src"))
 def serve_readings(cell, seeds, seconds, device, bench_dir=None):
     import numpy as np
     from harness import check, weights
+    from harness.manifest import reference
     from harness.serve import ServeCell
-    from reference.model import Ref, precise
+    from reference.common import precise
+    Ref = reference(cell).Ref
     sc = ServeCell(cell, seeds[0], device, log=print)
     lim = cell.limits["sample"]
     model = cell.config["model"]
     out = []
     try:
         for seed in seeds:
-            weights.refill(sc.weights, model, seed)
+            weights.refill(sc.weights, cell.config, seed)
             win = sc.window(seed, seconds)
             picks, _ = check.sample(win, int(sc.dep["max_len"]), sc.warmed,
-                                    seed, lim)
+                                    seed, lim, sc.exact)
             precise()
             ref = Ref(model)
             prog = check.served_gaps(ref, sc.weights, picks, device)
@@ -75,12 +77,12 @@ def serve_readings(cell, seeds, seconds, device, bench_dir=None):
 def train_readings(cell, seeds, device, program=True):
     from harness import check
     from harness.train import (TrainCell, loss_gap, reference_numbers)
-    model, mix = cell.config["model"], cell.mix
+    config, mix = cell.config, cell.mix
     out = []
     for seed in seeds:
         t0 = time.monotonic()
         row = {"seed": seed}
-        ref = reference_numbers(model, mix, seed, device)
+        ref = reference_numbers(config, mix, seed, device)
         keep = check.moved_leaves(ref["grad1"])
 
         def gaps(losses, grad1, change):
@@ -93,10 +95,10 @@ def train_readings(cell, seeds, device, program=True):
             row["program"] = gaps(tc.losses, tc.grad1, tc.change3)
             tc.free()
             del tc
-        c = reference_numbers(model, mix, seed, device, precision="fp8")
+        c = reference_numbers(config, mix, seed, device, precision="fp8")
         row["control"] = gaps(c["losses"], c["grad1"], c["change"])
         half = dict(mix, batch=int(mix["batch"]) // 2)
-        h = reference_numbers(model, half, seed, device)
+        h = reference_numbers(config, half, seed, device)
         row["fault_half_batch"] = gaps(h["losses"], h["grad1"], h["change"])
         row["seconds"] = time.monotonic() - t0
         print("reading " + json.dumps(row), flush=True)

@@ -55,7 +55,8 @@ def sweep(cell, seed, seconds, scales, device, repeat=1):
             toks = sum(tokens_between(r, lo, hi) for r in win.served)
             live = sum(live_between(r, lo, hi) for r in win.served)
             met = [g for g in groups(win.served, int(sc.dep["max_len"]),
-                                     sc.warmed) if lo <= g.started < hi]
+                                     sc.warmed, sc.exact)
+                   if lo <= g.started < hi]
             row = {"scale": scale, "repeat": j, "rate": base * scale,
                    "sent": len(win.sent), "unfinished":
                    sum(1 for _, r in fg if r is None),
