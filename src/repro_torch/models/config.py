@@ -46,6 +46,9 @@ class ModelConfig:
     mamba_d_conv: int = 4
     mamba_expand: int = 2
     mamba_dt_rank: int = 0       # 0 => d_model // 16
+    # jamba2 (HF JambaMambaMixer): RMSNorms with learned scales on the
+    # time step (dt_rank wide), B and C (d_state wide) after x_proj's split
+    mamba_inner_norms: bool = False
     # encoder-decoder
     n_enc_layers: int = 0
     # modality frontend stubs ([vlm]/[audio]: backbone-only per spec)
@@ -109,6 +112,8 @@ class ModelConfig:
                 n += di * (self.dt_rank + 2 * ds)          # x_proj
                 n += self.dt_rank * di                     # dt_proj
                 n += di * (self.mamba_d_conv + ds + 2)     # conv, A, D, dt bias
+                if self.mamba_inner_norms:
+                    n += self.dt_rank + 2 * ds             # dt, B, C norms
             elif kind == "r":
                 n += 6 * d * d        # r,k,v,g,o,w projections (approx, w/ lora)
             if self.layer_is_moe(i):

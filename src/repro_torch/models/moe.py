@@ -7,16 +7,26 @@ Tokens are routed with an fp32 router and top-k (renormalised when
 capacity C are dropped), run through one batched GLU per projection, and
 combined back with a scatter-add weighted by their gates. The expert
 products are plain ``torch.einsum``s, as the reference leaves them to XLA
-outside any Pallas kernel.
+outside any Pallas kernel. At ``capacity_factor = n_experts / top_k`` the
+capacity is at least the call's token count, and a token's k experts are
+distinct, so no pair is dropped.
+
+``moe_apply``'s body runs inside a ``torch.profiler.record_function("moe")``
+range. Inside ``count_pairs(sink)`` every call adds its routed pairs and
+the pairs it kept to ``sink`` on the device (the serving engine's
+``moe_pairs`` and ``moe_pairs_dropped`` counters).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+import contextlib
+import contextvars
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from torch.distributed.tensor import DTensor
+from torch.profiler import record_function
 
 from ..sharding import collectives as col
 from ..sharding.api import active_rules
@@ -39,6 +49,24 @@ def moe_axes() -> Dict[str, Any]:
             "w1": ("expert", "embed", "mlp"),
             "wg": ("expert", "embed", "mlp"),
             "w2": ("expert", "mlp", "embed")}
+
+
+_SINK: contextvars.ContextVar[Optional[torch.Tensor]] = \
+    contextvars.ContextVar("moe_pairs_sink", default=None)
+
+
+@contextlib.contextmanager
+def count_pairs(sink: Optional[torch.Tensor]) -> Iterator[None]:
+    """Within it, each ``_moe_local`` call of this thread adds its routed
+    (token, expert) pairs to ``sink[0]`` and the pairs it kept to
+    ``sink[1]`` (``sink``: int64 [2] on the call's device), with no host
+    sync, so a CUDA graph captured inside it adds them at every replay.
+    ``sink`` None counts nothing."""
+    token = _SINK.set(sink)
+    try:
+        yield
+    finally:
+        _SINK.reset(token)
 
 
 def _capacity(tokens: int, cfg: ModelConfig) -> int:
@@ -90,6 +118,10 @@ def _moe_local(x: torch.Tensor, router, w1, wg, w2, cfg: ModelConfig,
     T = x.shape[0]
     E, C = cfg.n_experts, _capacity(T, cfg)
     e_s, t_s, g_s, rank, keep = _route(x, router, cfg)
+    sink = _SINK.get()
+    if sink is not None:
+        sink[0].add_(keep.numel())
+        sink[1].add_(keep.sum())
     rank_c = torch.where(keep, rank, 0)
     e_c = torch.where(keep, e_s, 0)
 
@@ -127,6 +159,12 @@ def moe_apply(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
     DTensor x) each shard of (batch, seq) routes its own tokens with its
     own capacity, and the experts are sharded over the "expert" axis
     (``repro.models.moe.moe_apply``)."""
+    with record_function("moe"):
+        return _moe_body(p, x, cfg, compute_dtype)
+
+
+def _moe_body(p: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+              compute_dtype) -> torch.Tensor:
     rules = active_rules()
     if rules is None or not isinstance(x, DTensor):
         out = _moe_local(x, p["router"], p["w1"], p["wg"], p["w2"], cfg,

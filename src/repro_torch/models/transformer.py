@@ -340,8 +340,9 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
             lengths: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None,
             patches: Optional[torch.Tensor] = None, remat: bool = False,
-            impl: Optional[str] = None,
-            compute_dtype=torch.bfloat16) -> Tuple[torch.Tensor, Any]:
+            impl: Optional[str] = None, compute_dtype=torch.bfloat16,
+            prompt_lengths: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Any]:
     """Run the decoder stack. Returns (hidden [B,S,D], the cache|None);
     the cache's tensors are updated in place. With ``remat`` each block
     keeps only its input for the backward pass and runs again there.
@@ -351,7 +352,9 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
     frontend_dim] (encoder-decoder) go through the encoder, and every
     cross-attention attends to its output and fills the cache's cross
     K/V, which must hold F rows; without frames, a decoder with a cache
-    attends to the cross K/V that the cache holds."""
+    attends to the cross K/V that the cache holds. ``prompt_lengths`` [B]:
+    the true lengths of right-padded prompt rows, which the Mamba layers
+    need to keep pad steps out of their states (``mamba_apply``)."""
     check_supported(cfg)
     x = embed(tokens, params["embed"], scale_by_dim=cfg.embed_scale,
               compute_dtype=compute_dtype)
@@ -370,7 +373,8 @@ def forward(params, cfg: ModelConfig, *, tokens: torch.Tensor,
         positions = (torch.arange(S, device=x.device)
                      if lengths is None or S > 1 else (lengths - 1)[:, None])
     kw = dict(cfg=cfg, positions=positions, lengths=lengths, enc_out=enc_out,
-              impl=impl, compute_dtype=compute_dtype)
+              impl=impl, compute_dtype=compute_dtype,
+              prompt_lengths=prompt_lengths)
     blocks = _unbind(params["blocks"], cfg.n_blocks)
     for blk in range(cfg.n_blocks):
         c = None if cache is None else _block(cache, blk)
@@ -411,7 +415,7 @@ def _cross(sub, h: torch.Tensor, c, enc_out, cfg: ModelConfig,
 
 def _block_body(x: torch.Tensor, p_block, c_block, *, cfg: ModelConfig,
                 positions, lengths, enc_out, impl,
-                compute_dtype) -> torch.Tensor:
+                compute_dtype, prompt_lengths=None) -> torch.Tensor:
     """One block: every sub-layer of ``cfg.layer_pattern`` in turn."""
     zc, eps = cfg.zero_centered_norm, cfg.norm_eps
     kw = dict(impl=impl, compute_dtype=compute_dtype)
@@ -433,7 +437,8 @@ def _block_body(x: torch.Tensor, p_block, c_block, *, cfg: ModelConfig,
             out, conv, ssm = mamba_apply(
                 sub["mamba"], h, cfg,
                 conv_state=None if c is None else c["conv"],
-                ssm_state=None if c is None else c["ssm"], **kw)
+                ssm_state=None if c is None else c["ssm"],
+                lengths=prompt_lengths, **kw)
             x = x + out
             if c is not None:
                 _assign(c["conv"], conv)
@@ -523,15 +528,21 @@ def prefill(params, cfg: ModelConfig, tokens: torch.Tensor, cache, *,
             lengths: Optional[torch.Tensor] = None,
             frames: Optional[torch.Tensor] = None,
             patches: Optional[torch.Tensor] = None,
-            impl: Optional[str] = None, compute_dtype=torch.bfloat16):
+            impl: Optional[str] = None, compute_dtype=torch.bfloat16,
+            exact_states: bool = False):
     """Fill the cache with S tokens; return (last-token logits, cache,
     lengths). ``lengths`` ([B] int32, optional) marks per-row true prompt
     lengths of right-padded rows: logits are gathered at each row's last
-    valid position. ``frames`` and ``patches`` as in ``forward``."""
+    valid position. With ``exact_states`` the Mamba layers' states are
+    each row's at its length too (pad steps kept out: the serving
+    engine's padded admission); without, they run over the whole padded
+    row, as the JAX package's prefill does. ``frames`` and ``patches`` as
+    in ``forward``."""
     B, S = tokens.shape
     h, cache = forward(params, cfg, tokens=tokens, cache=cache, frames=frames,
                        patches=patches, impl=impl,
-                       compute_dtype=compute_dtype)
+                       compute_dtype=compute_dtype,
+                       prompt_lengths=lengths if exact_states else None)
     if lengths is None:
         lengths = torch.full((B,), S, dtype=torch.int32, device=h.device)
         last = None

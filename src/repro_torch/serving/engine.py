@@ -11,8 +11,10 @@ for attention layers, fp32 states for recurrent ones):
   ``index_copy_`` at the slot indices (never a copy of the whole cache).
   Right-padding is exact for attention layers: the decode kernel masks by
   ``lengths``, and pad positions are never attended and are progressively
-  overwritten. Recurrent patterns ("m"/"r") would fold pad tokens into
-  their state, so those bucket by exact length.
+  overwritten. It is exact for Mamba layers too: the prefill hands them
+  the true lengths, pad steps get dt = 0 (no decay, no input) and the
+  conv state is read at each row's length. RWKV layers would fold pad
+  tokens into their state, so patterns with "r" bucket by exact length.
 - **fused decode** — one step over all slots that advances every active
   slot and computes done-flags on the device, so the host syncs ONCE per
   step instead of once per slot.
@@ -27,7 +29,7 @@ graphs of one engine share one memory pool. An admission capture never
 waits: where another thread holds ``CAPTURE_LOCK`` (a replica being built,
 another engine's capture) the shape stays eager this time and is captured
 on a later call, as the reference's lazily traced ``jax.jit`` never waits
-on another replica. Engines with "m"/"r" layers
+on another replica. Engines with "r" layers
 admit eagerly: they bucket by exact prompt length, so a graph per length
 would be a graph per request. Each graph binds this engine's cache, slot
 state and input buffers, so all of them are static buffers that every call
@@ -71,6 +73,7 @@ from ..device import CAPTURE_LOCK, DeviceLike, resolve_device
 from ..kernels._build import record_launches
 from ..models import decode_step, init_cache, prefill
 from ..models.config import ModelConfig
+from ..models.moe import count_pairs
 from .scheduler import SlotScheduler
 
 
@@ -183,8 +186,8 @@ class GenerationEngine:
         # host mirrors (authoritative for slot occupancy)
         self.lengths = np.zeros((slots,), np.int32)
         self.slot_req: List[Optional[Request]] = [None] * slots
-        # recurrent state folds pad tokens in: bucket by exact length there
-        self._exact_buckets = any(ch in cfg.layer_pattern for ch in "mr")
+        # RWKV's state folds pad tokens in: bucket by exact length there
+        self._exact_buckets = "r" in cfg.layer_pattern
         # perf counters (benchmarks read these)
         self.steps = 0
         self.admit_calls = 0            # fused admit invocations
@@ -194,6 +197,11 @@ class GenerationEngine:
         self.admit_captures = 0         # admission graphs captured (lazily)
         self.capture_s = 0.0            # seconds spent in those captures
         self.captures_skipped = 0       # admission captures left for later
+        # MoE (token, expert) pairs routed and kept, summed on the device by
+        # every admit call and step (graphed ones too), read by counters()
+        self._moe_counts = (torch.zeros((2,), dtype=torch.int64,
+                                        device=self.device)
+                            if cfg.is_moe else None)
         # tracing (module docstring): the span lane's owner, and the timing
         # events, made at the first traced call on the card
         self.tracer: Optional[Any] = None
@@ -236,9 +244,11 @@ class GenerationEngine:
         cfg = self.cfg
         row_cache = init_cache(cfg, prompts.shape[0], self.max_len,
                                enc_len=self.max_len, device=self.device)
-        logits, row_cache, _ = prefill(self.params, cfg, prompts, row_cache,
-                                       lengths=true_len,
-                                       compute_dtype=self.compute_dtype)
+        with count_pairs(self._moe_counts):
+            logits, row_cache, _ = prefill(self.params, cfg, prompts,
+                                           row_cache, lengths=true_len,
+                                           compute_dtype=self.compute_dtype,
+                                           exact_states=True)
         first = logits[:, 0, :cfg.vocab].argmax(dim=-1).to(torch.int32)
         for name, sub in self.cache.items():
             for kv, c in sub.items():
@@ -281,9 +291,10 @@ class GenerationEngine:
         buffers, which is what lets a CUDA graph replay this body. Returns
         ``self._out``, [2, slots] int32: tokens, done."""
         call_lengths = self._slot_lengths + 1     # new token position + 1
-        logits, _, _ = decode_step(self.params, self.cfg, self._last,
-                                   self.cache, call_lengths,
-                                   compute_dtype=self.compute_dtype)
+        with count_pairs(self._moe_counts):
+            logits, _, _ = decode_step(self.params, self.cfg, self._last,
+                                       self.cache, call_lengths,
+                                       compute_dtype=self.compute_dtype)
         toks = logits[:, 0, :self.cfg.vocab].argmax(dim=-1).to(torch.int32)
         active = self._active
         self._slot_lengths.copy_(torch.where(active, call_lengths,
@@ -551,13 +562,23 @@ class GenerationEngine:
         return sum(1 for r in self.slot_req if r is not None)
 
     def counters(self) -> Dict[str, float]:
+        """The engine's counts. ``moe_pairs`` / ``moe_pairs_dropped``: MoE
+        (token, expert) pairs routed through the expert layers by every
+        admit call (its pad rows too) and step so far, and those dropped
+        past the capacity;
+        an MoE engine reads them from the device here (one transfer),
+        any other reports 0 without touching the device."""
+        pairs = kept = 0
+        if self._moe_counts is not None:
+            pairs, kept = self._moe_counts.tolist()
         return {"steps": self.steps, "admit_calls": self.admit_calls,
                 "admitted": self.admitted,
                 "host_syncs": self.host_syncs,
                 "admit_replays": self.admit_replays,
                 "admit_captures": self.admit_captures,
                 "capture_s": self.capture_s,
-                "captures_skipped": self.captures_skipped}
+                "captures_skipped": self.captures_skipped,
+                "moe_pairs": pairs, "moe_pairs_dropped": pairs - kept}
 
 
 class ContinuousBatcher:

@@ -8,13 +8,14 @@ window cut to 8 positions so that it binds at these lengths):
 - the staged admit body ``_admit_staged``, which reads one flat static
   buffer and writes the first tokens into the engine's ``_first`` buffer
   (what an admission graph captures), leaves the same slot state and first
-  tokens as ``_admit`` called on its own tensors, bit for bit;
+  tokens as ``_admit`` called on its own tensors, bit for bit (and so for
+  jamba-v0.1, 8 layers, whose Mamba layers take right-padded prompts);
 - admission through the engine's graph logic, with a stand-in capture whose
   replay runs the captured body (nothing captures on the CPU): a shape's
   first call runs eagerly and is captured after, later calls of the shape
   replay from the static buffer, and the slot state after each admission
   and the greedy tokens are the JAX engine's;
-- recurrent engines ("m"/"r", exact-length buckets) admit without graphs;
+- RWKV engines ("r", exact-length buckets) admit without graphs;
 - threads entering the capture section, and threads that hold the lock for
   a device-wide sync, never overlap (stand-in graph, streams and body);
 - an engine meeting new shapes while another thread holds the lock admits
@@ -24,7 +25,7 @@ window cut to 8 positions so that it binds at these lengths):
 On the card (marker ``cuda``; skipped without one): graphed against eager
 admission (both with the graphed step), tokens and launch counts equal and
 the second drain all replays; the admit body under
-``torch.cuda.set_sync_debug_mode("error")``; recurrent engines build no
+``torch.cuda.set_sync_debug_mode("error")``; RWKV engines build no
 admission graph; the concurrent-capture fault as a regression test: two
 graphed engines built and driven at once on two threads, while the main
 thread syncs the device and releases the allocator's cache under the lock;
@@ -56,7 +57,9 @@ F32 = torch.float32
 MAX_LEN = 40
 ATTN = ["qwen2-7b", "gemma2-9b", "yi-9b", "qwen2.5-14b", "olmoe-1b-7b",
         "qwen3-moe-30b-a3b", "internvl2-2b", "seamless-m4t-large-v2"]
-RECURRENT = ["rwkv6-7b", "jamba-v0.1-52b"]
+# the patterns whose admission pads to buckets and is graphed on the card
+PADDED = ATTN + ["jamba-v0.1-52b"]
+RECURRENT = ["rwkv6-7b"]
 STATE = ("_slot_lengths", "_budget", "_active", "_last")
 # two rounds of four requests on four slots; the same lengths and budgets
 # in both, so the second round's admission shapes are the first's
@@ -135,7 +138,7 @@ def _assert_slot_state(eng, jeng):
 
 # ------------------------------------------------------------ the CPU
 
-@pytest.mark.parametrize("arch", ATTN)
+@pytest.mark.parametrize("arch", PADDED)
 def test_staged_admit_body_matches_eager_admit(jax_ref, arch):
     """``_admit_staged`` on a static flat buffer against ``_admit`` on its
     own tensors, two engines on the same weights: the same first tokens,
@@ -323,7 +326,7 @@ def test_admission_capture_never_waits_on_another_thread(stand_in_capture):
 
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_recurrent_engines_build_no_admit_graph(stand_in_capture, arch):
-    """Exact-length buckets would make a graph per request: an "m"/"r"
+    """Exact-length buckets would make a graph per request: an "r"
     engine admits eagerly whatever the capture would do (here the stand-in
     records every capture, and none is made), and so does every engine on
     the CPU."""
@@ -457,7 +460,7 @@ def _counted_round(engine, prompts, uid0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ATTN)
+@pytest.mark.parametrize("arch", PADDED)
 def test_graphed_admission_matches_eager_admission(cuda, arch):
     """Two graphed engines on one set of bf16 weights, one of them with its
     graph admission cleared (both keep the graphed step), two rounds each:
@@ -491,7 +494,7 @@ def test_graphed_admission_matches_eager_admission(cuda, arch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ATTN)
+@pytest.mark.parametrize("arch", PADDED)
 def test_admit_body_makes_no_host_sync(cuda, arch):
     """``_admit_staged``, the body an admission graph holds, under
     ``torch.cuda.set_sync_debug_mode("error")``, which raises at an op that
@@ -525,7 +528,7 @@ def test_admit_body_makes_no_host_sync(cuda, arch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", RECURRENT)
 def test_recurrent_engines_admit_eagerly_on_the_card(cuda, arch):
-    """A graphed "m"/"r" engine replays its decode graph but admits
+    """A graphed "r" engine replays its decode graph but admits
     eagerly: no admission graph after two rounds of the same shapes."""
     cfg, params = _card_model(arch, cuda)
     eng = GenerationEngine(cfg, params, slots=4, max_len=MAX_LEN,

@@ -144,12 +144,15 @@ def test_ragged_batch_tokens_identical_to_jax_engine(model):
 
 @pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-v0.1-52b"])
 def test_recurrent_pattern_exact_length_buckets(arch):
-    """Recurrent layers fold pad tokens into their state, so the engine
-    buckets them by exact prompt length (twin of
-    tests/test_serving.py::test_recurrent_pattern_exact_length_buckets).
-    ``index_copy_`` admission carries every state leaf (shift_tm, shift_cm,
-    wkv; conv, ssm) into its slot, as the JAX engine's scatter does, and
-    greedy tokens are identical to the JAX engine's at fp32."""
+    """RWKV layers fold pad tokens into their state, so the engine buckets
+    them by exact prompt length (twin of
+    tests/test_serving.py::test_recurrent_pattern_exact_length_buckets);
+    Mamba layers keep pad steps out of theirs, so jamba pads to the
+    power-of-two buckets, where the JAX engine takes exact lengths, and
+    its states must come out the same. ``index_copy_`` admission carries
+    every state leaf (shift_tm, shift_cm, wkv; conv, ssm) into its slot,
+    as the JAX engine's scatter does, and greedy tokens are identical to
+    the JAX engine's at fp32."""
     kw = {"n_layers": 8} if arch.startswith("jamba") else {"n_layers": 2}
     jcfg = j_reduced(j_get_config(arch), **kw)
     cfg = reduced(get_config(arch), **kw)
@@ -162,14 +165,14 @@ def test_recurrent_pattern_exact_length_buckets(arch):
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
                for n in (5, 9, 5)]
     eng = _engine(cfg, params, slots=3)
-    assert eng._exact_buckets
+    assert eng._exact_buckets == ("r" in cfg.layer_pattern)
     jeng = JEngine(jcfg, jparams, slots=3, max_len=MAX_LEN,
                    compute_dtype=jnp.float32)
     reqs = [Request(i, p, max_new_tokens=4) for i, p in enumerate(prompts)]
     jreqs = [JRequest(i, p, max_new_tokens=4) for i, p in enumerate(prompts)]
     eng.admit_many(reqs)
     jeng.admit_many(jreqs)
-    assert eng.admit_calls == 2       # lengths {5, 5} and {9}
+    assert eng.admit_calls == 2       # {5, 5} and {9}; jamba's in 8 and 16
     states = [(sub, leaf) for sub, c in jeng.cache.items() for leaf in c
               if leaf not in ("k", "v")]
     assert states

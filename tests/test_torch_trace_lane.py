@@ -273,7 +273,8 @@ def test_counters_are_public_and_dropped_counter_is_gone(model):
     eng = _engine(model)
     assert set(eng.counters()) == {
         "steps", "admit_calls", "admitted", "host_syncs", "admit_replays",
-        "admit_captures", "capture_s", "captures_skipped"}
+        "admit_captures", "capture_s", "captures_skipped", "moe_pairs",
+        "moe_pairs_dropped"}
     assert not hasattr(eng, "full_cache_copies")
     assert eng.tracer is None
 
